@@ -1,0 +1,36 @@
+"""Randomly-connected encoder (reference model/encoder.py): five
+EncoderStages, each halving H and W; returns all five feature maps."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+from torch import nn
+
+from .graph import resolve_stage_graph
+from .layers import EncoderStage
+
+
+class RandomEncoder(nn.Module):
+    """Built from the config's ``encoder`` section (``layers`` per-stage
+    dicts plus ``load_graph``/``nodes``/``seed``; stage graphs count from
+    1, reference model/encoder.py:33-36)."""
+
+    def __init__(self, layers: Sequence[dict], load_graph: Optional[str] = None,
+                 nodes: int = 5, seed: int = 42):
+        super().__init__()
+        self.graphs = tuple(
+            resolve_stage_graph(i + 1, nodes=nodes, seed=seed,
+                                load_graph=load_graph)
+            for i in range(len(layers)))
+        self.layers = nn.ModuleList(
+            EncoderStage(graph, cfg["in_channels"], cfg["out_channels"],
+                         cfg["kernel_size"], heads=cfg.get("heads", 8))
+            for graph, cfg in zip(self.graphs, layers))
+
+    def forward(self, x):
+        encodings = []
+        for stage in self.layers:
+            x = stage(x)
+            encodings.append(x)
+        return tuple(encodings)
