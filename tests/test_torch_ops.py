@@ -13,9 +13,12 @@ import torch_port_helpers  # noqa: F401  (sets the torch thread count)
 
 from uncertainty_model_tpu.models.graph import load_graph_spec as jax_load_graph
 from uncertainty_model_tpu.models.graph import resolve_stage_graph as jax_resolve
+from uncertainty_model_tpu.ops import avg_pool2d as jax_avg_pool2d
+from uncertainty_model_tpu.ops import global_avg_pool as jax_global_avg_pool
 from uncertainty_model_tpu.ops import pad2d as jax_pad2d
 from uncertainty_model_tpu.ops import pixel_shuffle as jax_pixel_shuffle
 from uncertainty_model_tpu.ops import resize_bilinear as jax_resize
+from uncertainty_model_tpu.ops import scale_pyramid as jax_scale_pyramid
 from uncertainty_model_tpu.ops.pallas.decoder_fused import (
     _shuffle_phase_major as jax_shuffle_phase_major)
 from uncertainty_model_tpu.ops.resize import _lerp_coeffs as jax_lerp_coeffs
@@ -23,7 +26,8 @@ from uncertainty_model_tpu.ops.resize import _lerp_coeffs as jax_lerp_coeffs
 from uncertainty_model_tpu_torch.models.graph import (
     load_graph_spec, resolve_stage_graph)
 from uncertainty_model_tpu_torch.ops import (
-    pixel_shuffle, reflect_pad2d, resize_bilinear, shuffle_phase_major)
+    avg_pool2d, global_avg_pool, pad2d, pixel_shuffle, reflect_pad2d,
+    resize_bilinear, scale_pyramid, shuffle_phase_major)
 from uncertainty_model_tpu_torch.ops.resize import _lerp_coeffs, lerp_taps
 
 
@@ -120,3 +124,39 @@ def test_built_graph_matches_jax(stage):
     port = resolve_stage_graph(stage, seed=42)
     ref = jax_resolve(stage, seed=42)
     assert tuple(tuple(n) for n in port.nodes) == tuple(tuple(n) for n in ref.nodes)
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((2, 8, 10, 3), 3), ((1, 12, 13, 30), 3), ((2, 11, 11, 2), 11),
+    ((1, 3, 5, 4), 3)])
+def test_avg_pool2d_matches_jax(shape, k):
+    """Valid stride-1 pooling; the window sums are taken in another order
+    (rtol 1e-6)."""
+    x = _normal(5, shape)
+    got = avg_pool2d(torch.from_numpy(x), k).numpy()
+    want = np.asarray(jax_avg_pool2d(jnp.asarray(x), k, 1))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        global_avg_pool(torch.from_numpy(x)).numpy(),
+        np.asarray(jax_global_avg_pool(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", ["zeros", "replicate", "reflect"])
+@pytest.mark.parametrize("padding", [(0, 1, 0, 0), (0, 0, 0, 1), (2, 1, 3, 0)])
+def test_pad2d_matches_jax(mode, padding):
+    x = _normal(6, (2, 4, 5, 3))
+    got = pad2d(torch.from_numpy(x), padding, mode).numpy()
+    want = np.asarray(jax_pad2d(jnp.asarray(x), padding, mode=mode))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 64, 6), (1, 24, 40, 3)])
+def test_scale_pyramid_matches_jax(shape):
+    x = _normal(7, shape)
+    got = scale_pyramid(torch.from_numpy(x), 4)
+    want = jax_scale_pyramid(jnp.asarray(x), 4)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)

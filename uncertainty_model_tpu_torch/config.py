@@ -1,8 +1,9 @@
 """Model configurations as Python data (no YAML parser is needed to run the
 port).  ``FLAGSHIP_MODEL`` is the ``model:`` section of
 ``configs/uncertainty.yml``: the reference's production architecture,
-22.5M parameters at 256x512 input.  tests/test_torch_serving.py pins the
-two as equal."""
+22.5M parameters at 256x512 input; ``FLAGSHIP_LOSS`` is its ``loss:``
+section.  tests/test_torch_serving.py and tests/test_torch_train.py pin
+them equal to the file."""
 
 from __future__ import annotations
 
@@ -46,6 +47,26 @@ FLAGSHIP_MODEL = {
              "concat_disp": True, "calculate_disp": True,
              "disp_channels": 4},
         ],
+    },
+}
+
+# the ``loss:`` section of configs/uncertainty.yml (TukraUncertaintyLoss's
+# keys; the adversarial ones are read only by the adversarial branch)
+FLAGSHIP_LOSS = {
+    "wssim_weight": 1.0,
+    "consistency_weight": 1.0,
+    "smoothness_weight": 1.0,
+    "adversarial_weight": 0.85,
+    "perceptual_weight": 0.05,
+    "predictive_error_weight": 1.0,
+    "wssim_alpha": 0.85,
+    "perceptual_start": 5,
+    "adversarial_loss_type": "mse",
+    "error_loss_config": {
+        "loss_type": "l1",
+        "smoothness_weight": 0,
+        "consistency_weight": 0.5,
+        "pooling": False,
     },
 }
 

@@ -1,8 +1,15 @@
 """Numerics ops of the port, on NHWC tensors like the JAX package's."""
 
-from .pad import reflect_pad2d
-from .resize import resize_bilinear
+from .pad import pad2d, reflect_pad2d
+from .pool import avg_pool2d, global_avg_pool
+from .resize import resize_bilinear, scale_pyramid
 from .shuffle import pixel_shuffle, shuffle_phase_major
+from .warp import (reconstruct_left_image, reconstruct_pyramid_with_lr,
+                   reconstruct_right_image, reconstruct_stereo_with_lr,
+                   warp_by_disparity)
 
-__all__ = ["reflect_pad2d", "resize_bilinear", "pixel_shuffle",
-           "shuffle_phase_major"]
+__all__ = ["pad2d", "reflect_pad2d", "avg_pool2d", "global_avg_pool",
+           "resize_bilinear", "scale_pyramid", "pixel_shuffle",
+           "shuffle_phase_major", "reconstruct_left_image",
+           "reconstruct_pyramid_with_lr", "reconstruct_right_image",
+           "reconstruct_stereo_with_lr", "warp_by_disparity"]

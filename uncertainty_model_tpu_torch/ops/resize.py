@@ -117,3 +117,11 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     interpolated first, then W, as in the JAX package."""
     x = _interp_axis(x, size[0], x.ndim - 3)
     return _interp_axis(x, size[1], x.ndim - 2)
+
+
+def scale_pyramid(x: torch.Tensor, scales: int) -> list[torch.Tensor]:
+    """``scales`` levels of an NHWC image, H and W halved (floor) at each
+    level by the align-corners resize (reference train/utils.py:27-50)."""
+    h, w = x.shape[-3], x.shape[-2]
+    return [resize_bilinear(x, (h // 2 ** i, w // 2 ** i))
+            for i in range(scales)]

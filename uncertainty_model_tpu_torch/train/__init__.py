@@ -1,0 +1,5 @@
+"""The training loop."""
+
+from .trainer import Trainer
+
+__all__ = ["Trainer"]
