@@ -9,12 +9,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``uncertainty_model_tpu_torch/csrc`` (one ``nvcc`` per source, started
    together);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main paths give it (``assemble_z``; ``warp_rows`` forward and
-   backward);
-3. run the serving path: the 22.5M-parameter flagship model's bf16 serving
+   shapes the main paths give it, in bf16 and f32 (``assemble_z``,
+   ``gate_z``, ``se_squeeze``, ``assemble``, ``gated_conv_elu``;
+   ``warp_rows`` forward and backward);
+3. run the serving paths: the 22.5M-parameter flagship model's bf16 serving
    forward at 256x512, batch 8, from random weights made from a seed, with
    the kernel launch counters zeroed just before and read just after; the
-   output is held against the f32 eval model;
+   output is held against the f32 eval model.  First the bench path
+   (``s2d_stages=()``, gate_fold: 3 ``assemble_z``), then the JAX
+   package's default encoder, ``s2d_stages=(0, 1)``, with each decoder
+   pipeline: (a) gate_fold, 8 ``gated_conv_elu`` + 3 ``assemble_z``;
+   (b) gate_z, 8 + 3 + 3 ``gate_z``; (c) squeeze_first, 8 + 3
+   ``se_squeeze`` + 3 ``assemble``.  Each also in f32 (TF32 off);
 3b. run the training path: ``Trainer.train_one_epoch`` of the flagship in
    f32 (TF32 off) at batch 8, 256x512, a few steps on one seeded stereo
    batch, counters zeroed just before and read after (16 forward and 16
@@ -23,11 +29,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    the CPU (the plain versions) from the same weights: the losses, the
    whole step's gradients by their median, and each link of the
    gradient's chain per scale and per parameter;
-4. time the serving forward at batch 64, the training step at batch 8, and
-   each kernel against its plain version, its bound and the PyTorch call
-   that computes the same function (CUDA events, median of 9 with spread),
-   and break one forward's and one step's device time down by operator
-   (``torch.profiler``);
+4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
+   and (a) with ``s2d_conv_backend="lax"``), the training step at batch 8,
+   and each kernel against its plain version, its bound and the PyTorch
+   call that computes the same function (CUDA events, median of 9 with
+   spread), and break the bench path's, (a)'s and one step's device time
+   down by operator (``torch.profiler``);
 5. print the ``kernels`` line, then the device line last.
 """
 
@@ -46,6 +53,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
 SEED = 0
 SMOKE_BATCH = 8     # the main path's batch; the kernels are checked at it
 TIMING_BATCH = 64
@@ -64,8 +72,10 @@ GRAD_REL, GRAD_FLOOR = 5e-3, 5e-3   # |g_card - g_cpu| < max(rel |g|, floor)
 LOSS_GRAD_REL = 1e-5    # dL/dD card vs CPU at equal disparities, per scale
 WHOLE_STEP_MEDIAN_REL = 3e-2   # whole-step gradients card vs CPU, median
 DSRC_TOL = 1e-5     # warp_rows dsrc: 1e-5 * (1 + sum of the terms' |.|)
+CONV_F32_TOL = 1e-5     # gated_conv_elu f32: 1e-5 * (1 + sum of the terms' |.|)
 WARP_LIBRARY_TOL = 1e-2   # grid_sample vs the kernel (x -> grid rounding)
-PORT_KERNELS = ("assemble_z", "warp_rows", "se_mean")   # device kernel names
+PORT_KERNELS = ("decoder_rows", "se_mean", "gate_z_rows", "gated_conv",
+                "warp_rows")   # device kernel names, for the profiler
 
 # the flagship's fused decoder stages: (name, H, W, Cso, Cu, Cd, cf)
 # (cf > 0: the SE conv's feature-map half is folded into the kernel)
@@ -74,6 +84,26 @@ ASSEMBLE_Z_STAGES = (
     ("dec3", 128, 256, 64, 16, 4, 0),
     ("dec4", 256, 512, 32, 8, 4, 3),
 )
+
+
+# the flagship's s2d encoder stages at 256x512 (name, H, W, C = Co, k): the
+# 7x7 and 5x5 interior convs of 32 and 64 channels on the half-resolution
+# grid; the interior nodes of their K5 graphs take 1, 2, 3 and 4 inputs
+S2D_CONV_STAGES = (
+    ("enc0", 64, 128, 128, 5),
+    ("enc1", 32, 64, 256, 3),
+)
+GATED_INPUTS = (1, 2, 3, 4)
+
+# the JAX package's default encoder with each decoder pipeline, and the
+# launches a forward must make (every other serving kernel: 0)
+S2D_PATHS = {
+    "a": ({"s2d_stages": (0, 1)}, {"gated_conv_elu": 8, "assemble_z": 3}),
+    "b": ({"s2d_stages": (0, 1), "dec_pipeline": "gate_z"},
+          {"gated_conv_elu": 8, "assemble_z": 3, "gate_z": 3}),
+    "c": ({"s2d_stages": (0, 1), "dec_pipeline": "squeeze_first"},
+          {"gated_conv_elu": 8, "se_squeeze": 3, "assemble": 3}),
+}
 
 
 def log(*args):
@@ -227,6 +257,120 @@ def check_warp_rows():
     return worst
 
 
+def decoder_gates(seed, b, cso, dtype, device="cuda"):
+    """SE gates in (0, 1), as the SE MLP's sigmoid gives them."""
+    g = np.random.default_rng(seed).uniform(0.05, 1.0, (b, cso))
+    return torch.from_numpy(g.astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def check_decoder_glue():
+    """``gate_z``, ``se_squeeze`` and ``assemble`` against their plain
+    versions at the fused stages' shapes; on the card, ``assemble(g)``
+    equals ``gate_z(assemble_z(), g)`` bit for bit and ``gate_z`` leaves the
+    channels >= Cso untouched.  Returns the worst abs error of each."""
+    from uncertainty_model_tpu_torch.ops.decoder_fused import (
+        assemble, assemble_plain, assemble_z, gate_z, gate_z_plain,
+        se_squeeze, se_squeeze_plain)
+
+    worst = {"gate_z": 0.0, "se_squeeze": 0.0, "assemble": 0.0}
+    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_disp in (True, False):
+                args = assemble_z_inputs(SEED + h + 1, SMOKE_BATCH, h, w, cso,
+                                         cu, cd if with_disp else 0, cf, dtype)
+                se, skip, xc, disp, bias, k_fm = args
+                gates = decoder_gates(SEED + h, SMOKE_BATCH, cso, dtype)
+                mean = se_squeeze(se, skip, bias, k_fm)
+                cat = assemble(se, skip, gates, xc, disp, bias, k_fm)
+                cat_z, _ = assemble_z(*args)
+                ungated = cat_z.clone()
+                gated = gate_z(cat_z, gates, cso)
+                torch.cuda.synchronize()
+                ref_mean = se_squeeze_plain(se, skip, bias, k_fm)
+                ref_cat = assemble_plain(se, skip, gates, xc, disp, bias, k_fm)
+                ref_gated = gate_z_plain(ungated.clone(), gates, cso)
+                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                errs = {
+                    "gate_z": (gated.float() - ref_gated.float()).abs().max().item(),
+                    "se_squeeze": (mean - ref_mean).abs().max().item(),
+                    "assemble": (cat.float() - ref_cat.float()).abs().max().item(),
+                }
+                ok = (within(gated, ref_gated, **tol)
+                      and within(mean, ref_mean, MEAN_RTOL, 1e-5)
+                      and within(cat, ref_cat, **tol))
+                untouched = torch.equal(gated[..., cso:], ungated[..., cso:])
+                composed = torch.equal(cat, gated)
+                log(f"  {name} {str(dtype)[6:]:8s} disp={with_disp!s:5s} "
+                    f"fold={bool(cf)!s:5s} max|err| gate_z {errs['gate_z']:.3g}"
+                    f" se_squeeze {errs['se_squeeze']:.3g} assemble "
+                    f"{errs['assemble']:.3g}; channels >= Cso untouched "
+                    f"{untouched}; assemble == gate_z(assemble_z) {composed} "
+                    f"{'ok' if ok and untouched and composed else 'DISAGREES'}")
+                if not (ok and untouched and composed):
+                    fail(f"decoder glue kernels disagree at {name} {dtype} "
+                         f"disp={with_disp}")
+                for k, v in errs.items():
+                    worst[k] = max(worst[k], v)
+    log(f"tolerances: f32 rtol {F32_TOL['rtol']} atol {F32_TOL['atol']}; bf16 "
+        f"rtol 2^-7 atol {BF16_TOL['atol']}; se_squeeze mean rtol {MEAN_RTOL}")
+    return worst
+
+
+def gated_conv_inputs(seed, b, h, w, c, k, n, dtype):
+    """``n`` zero-padded (B, H+2p, W+2p, C) inputs, sigmoid gates, an HWIO
+    kernel scaled to keep the output O(1), an f32 bias, on the card."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    p = (k - 1) // 2
+
+    def t(*shape, scale=1.0, dt=dtype):
+        a = (scale * rng.normal(size=shape)).astype(np.float32)
+        return torch.from_numpy(a).to(device="cuda", dtype=dt)
+
+    xs = [F.pad(t(b, h, w, c), (0, 0, p, p, p, p)) for _ in range(n)]
+    gates = torch.sigmoid(t(n, dt=torch.float32))
+    return xs, gates, t(k, k, c, c, scale=(k * k * c) ** -0.5), \
+        t(c, scale=0.1, dt=torch.float32)
+
+
+def check_gated_conv_elu():
+    """``gated_conv_elu`` against its plain version at the s2d stages'
+    (stage, inputs) shapes; returns the worst abs error."""
+    from uncertainty_model_tpu_torch.ops.conv import (
+        conv_magnitude, gated_conv_elu, gated_conv_elu_plain)
+
+    worst = 0.0
+    for name, h, w, c, k in S2D_CONV_STAGES:
+        for n in GATED_INPUTS:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = gated_conv_inputs(SEED + 10 * n + h, SMOKE_BATCH, h, w,
+                                         c, k, n, dtype)
+                out = gated_conv_elu(*args)
+                torch.cuda.synchronize()
+                ref = gated_conv_elu_plain(*args)
+                err = (out.float() - ref.float()).abs()
+                if dtype == torch.bfloat16:
+                    ok = within(out, ref, **BF16_TOL)
+                else:
+                    terms = conv_magnitude(*args[:3])
+                    ok = bool((err <= CONV_F32_TOL * (1 + terms)).all())
+                err = err.max().item()
+                log(f"  gated_conv_elu {name} n={n} {str(dtype)[6:]:8s} "
+                    f"{tuple(out.shape)}: max|err|={err:.3g} "
+                    f"{'ok' if ok else 'DISAGREES'}")
+                if not ok:
+                    fail(f"gated_conv_elu kernel disagrees with its plain "
+                         f"version at {name} n={n} {dtype}")
+                worst = max(worst, err)
+                del args, out, ref
+    log(f"tolerances: bf16 rtol 2^-7 atol {BF16_TOL['atol']} (the matrix "
+        f"operands equal the plain version's; only the f32 sum's order "
+        f"differs); f32 {CONV_F32_TOL} * (1 + sum of the terms' magnitudes), "
+        f"for sums of up to 3,200 terms in another order")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -270,6 +414,8 @@ def images(batch, seed):
 
 
 def run_main_path(model, counters):
+    """The bench path's bf16 and f32 forwards at batch 8; returns
+    (launches, forward, x, f32 eval model output)."""
     from uncertainty_model_tpu_torch.serving import make_serving_forward
 
     torch.backends.cudnn.allow_tf32 = False
@@ -294,6 +440,8 @@ def run_main_path(model, counters):
         fail("non-finite output")
     if launches["assemble_z"] != 3:
         fail(f"assemble_z launched {launches['assemble_z']} times, not 3")
+    if any(n for name, n in launches.items() if name != "assemble_z"):
+        fail(f"the bench path launched other kernels: {launches}")
     err_bf16 = (out.float() - ref).abs().max().item()
     log(f"  bf16 serving vs f32 eval model: max abs {err_bf16:.4g} "
         f"(limit {BF16_VS_F32_EVAL})")
@@ -308,7 +456,44 @@ def run_main_path(model, counters):
         fail("f32 serving forward is not close to the f32 eval model")
     log(f"  output range [{out.float().min().item():.4f}, "
         f"{out.float().max().item():.4f}]")
-    return launches, forward
+    return launches, forward, x, ref
+
+
+def run_s2d_paths(model, counters, x, ref):
+    """Forwards (a), (b), (c) of ``S2D_PATHS`` at batch 8 on ``x``: bf16,
+    counters zeroed just before and read just after, each count as listed;
+    then f32 (TF32 off).  Both are held against the f32 eval model's
+    ``ref``.  Returns ({path: bf16 forward}, {path: launches}, {path: (bf16
+    err, f32 err)})."""
+    from uncertainty_model_tpu_torch.serving import make_serving_forward
+
+    forwards, launches, errs = {}, {}, {}
+    for key, (options, expected) in S2D_PATHS.items():
+        forward = make_serving_forward(model, dtype=torch.bfloat16, **options)
+        for fn in counters.values():
+            fn.launches = 0
+        out = forward(x)
+        torch.cuda.synchronize()
+        got = {name: fn.launches for name, fn in counters.items()}
+        log(f"path ({key}) {options}: bf16 forward {tuple(x.shape)} -> "
+            f"{tuple(out.shape)}; launches {got}")
+        if got != {name: expected.get(name, 0) for name in counters}:
+            fail(f"path ({key}) launched {got}, not {expected}")
+        if tuple(out.shape) != tuple(ref.shape) or not torch.isfinite(out).all():
+            fail(f"path ({key}) output {tuple(out.shape)} is not finite or "
+                 "not of the eval model's shape")
+        err_bf16 = (out.float() - ref).abs().max().item()
+        out32 = make_serving_forward(model, dtype=torch.float32, **options)(x)
+        err_f32 = (out32 - ref).abs().max().item()
+        log(f"  vs the f32 eval model: bf16 max abs {err_bf16:.4g} (limit "
+            f"{BF16_VS_F32_EVAL}), f32 max abs {err_f32:.4g} (limit "
+            f"{F32_VS_F32_EVAL})")
+        if not (err_bf16 <= BF16_VS_F32_EVAL and err_f32 <= F32_VS_F32_EVAL):
+            fail(f"path ({key}) is not close to the f32 eval model")
+        forwards[key], launches[key], errs[key] = forward, got, (err_bf16,
+                                                                 err_f32)
+        del out32
+    return forwards, launches, errs
 
 
 # ---------------------------------------------------------------------------
@@ -605,12 +790,12 @@ def time_assemble_z():
     return rows
 
 
-def time_forward(forward):
+def time_forward(forward, label="bench path"):
     x = images(TIMING_BATCH, SEED + 2)
     ms, spread = time_ms(lambda: forward(x), reps=1)
-    log(f"  serving forward bf16 b{TIMING_BATCH} 256x512: {ms:.2f} ms/pass "
-        f"(spread {spread:.2f} ms over 9), {TIMING_BATCH / ms * 1e3:.1f} "
-        f"frames/s")
+    log(f"  serving forward ({label}) bf16 b{TIMING_BATCH} 256x512: {ms:.2f} "
+        f"ms/pass (spread {spread:.2f} ms over 9), "
+        f"{TIMING_BATCH / ms * 1e3:.1f} frames/s")
     return {"batch": TIMING_BATCH, "ms": ms, "ms_spread": spread,
             "fps": TIMING_BATCH / ms * 1e3}
 
@@ -790,9 +975,11 @@ def warp_rows_work(rows, w, c):
     return fwd, bwd
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, flop_per_s=F32_FLOP_PER_S):
+    """The least time (ms) for ``nbytes`` at the memory rate and ``ops`` at
+    ``flop_per_s`` (f32 on the CUDA cores unless named), and which bounds."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    ops_ms = ops / flop_per_s * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -878,6 +1065,114 @@ def time_warp_rows():
     return rows_out
 
 
+def time_gated_conv():
+    """``gated_conv_elu`` at each (stage, inputs) shape of a forward at
+    batch ``TIMING_BATCH`` in bf16: the kernel, the plain version and
+    ``F.conv2d`` (cuDNN) on the already gated sum, which computes the same
+    conv.  The bound takes the conv's multiply-adds at the bf16 tensor-core
+    peak (the gated sum's few operations per input element are left out)."""
+    import torch.nn.functional as F
+
+    from uncertainty_model_tpu_torch.ops.conv import (
+        gated_conv_elu, gated_conv_elu_plain, gated_sum)
+
+    rows = []
+    for name, h, w, c, k in S2D_CONV_STAGES:
+        for n in GATED_INPUTS:
+            xs, gates, wt, b = gated_conv_inputs(SEED + 50 + n, TIMING_BATCH,
+                                                 h, w, c, k, n, torch.bfloat16)
+            hsum = gated_sum(xs, gates).permute(0, 3, 1, 2)
+            w_lib = wt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b_lib = b.to(torch.bfloat16)
+            k_ms, k_spread = time_ms(lambda: gated_conv_elu(xs, gates, wt, b),
+                                     reps=3)
+            p_ms, p_spread = time_ms(
+                lambda: gated_conv_elu_plain(xs, gates, wt, b), reps=1)
+            l_ms, l_spread = time_ms(lambda: F.conv2d(hsum, w_lib, b_lib),
+                                     reps=3)
+            p = (k - 1) // 2
+            pix = TIMING_BATCH * h * w
+            nbytes = 2 * (n * TIMING_BATCH * (h + 2 * p) * (w + 2 * p) * c
+                          + pix * c + k * k * c * c) + 4 * c
+            ops = 2 * pix * k * k * c * c
+            bound_ms, bound_by = bound(nbytes, ops, BF16_FLOP_PER_S)
+            row = {"stage": name, "inputs": n, "batch": TIMING_BATCH,
+                   "dtype": "bfloat16", "bytes": nbytes, "flop": ops,
+                   "ms": k_ms, "ms_spread": k_spread, "plain_ms": p_ms,
+                   "plain_ms_spread": p_spread, "library_ms": l_ms,
+                   "library_ms_spread": l_spread, "bound_ms": bound_ms,
+                   "bound_by": bound_by,
+                   "tflop_per_s": ops / k_ms / 1e9}
+            log(f"  gated_conv_elu {name} n={n} b{TIMING_BATCH}: kernel "
+                f"{k_ms * 1e3:.1f} us (spread {k_spread * 1e3:.1f}, "
+                f"{row['tflop_per_s']:.1f} TFLOP/s), plain {p_ms * 1e3:.1f} "
+                f"us, F.conv2d {l_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f}"
+                f" us by {bound_by} ({ops / 1e12:.3f} TFLOP, "
+                f"{nbytes / 1e6:.1f} MB)")
+            rows.append(row)
+            del xs, hsum
+            torch.cuda.empty_cache()
+    return rows
+
+
+def time_decoder_glue():
+    """``gate_z``, ``se_squeeze`` and ``assemble`` at the fused stages of a
+    forward at batch ``TIMING_BATCH`` in bf16, beside their plain versions
+    and, for ``gate_z``, ``cat[..., :cso].mul_(gates)`` (the plain version
+    is that call too); ``se_squeeze`` and ``assemble`` have no single
+    PyTorch call.  ``gate_z`` scales the same tensor in place call after
+    call, which leaves its cost unchanged."""
+    from uncertainty_model_tpu_torch.ops.decoder_fused import (
+        assemble, assemble_plain, assemble_z, gate_z, gate_z_plain,
+        se_squeeze, se_squeeze_plain)
+
+    rows = {"gate_z": [], "se_squeeze": [], "assemble": []}
+    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES:
+        args = assemble_z_inputs(SEED + 8, TIMING_BATCH, h, w, cso, cu, cd, cf,
+                                 torch.bfloat16)
+        se, skip, xc, disp, bias, k_fm = args
+        gates = decoder_gates(SEED + 9, TIMING_BATCH, cso, torch.bfloat16)
+        cat, _ = assemble_z(*args)
+        g4 = gates[:, None, None, :]
+        pix = TIMING_BATCH * h * w
+        z_bytes, z_ops = assemble_z_work(TIMING_BATCH, h, w, cso, cu, cd, cf, 2)
+        calls = {
+            "gate_z": (lambda: gate_z(cat, gates, cso),
+                       lambda: gate_z_plain(cat, gates, cso),
+                       lambda: cat[..., :cso].mul_(g4),
+                       2 * 2 * pix * cso + 2 * TIMING_BATCH * cso, pix * cso),
+            "se_squeeze": (
+                lambda: se_squeeze(se, skip, bias, k_fm),
+                lambda: se_squeeze_plain(se, skip, bias, k_fm), None,
+                2 * (pix * (cf or cso) + pix // 4 * cso) + 4 * TIMING_BATCH * cso,
+                pix * cso * (12 + 2 * cf)),
+            "assemble": (
+                lambda: assemble(se, skip, gates, xc, disp, bias, k_fm),
+                lambda: assemble_plain(se, skip, gates, xc, disp, bias, k_fm),
+                None, z_bytes - 2 * TIMING_BATCH * cso, z_ops + pix * cso),
+        }
+        for kernel, (fn, plain, library, nbytes, ops) in calls.items():
+            k_ms, k_spread = time_ms(fn, reps=10)
+            p_ms, p_spread = time_ms(plain, reps=2)
+            l_ms = time_ms(library, reps=10)[0] if library else None
+            bound_ms, bound_by = bound(nbytes, ops)
+            rows[kernel].append({
+                "stage": name, "batch": TIMING_BATCH, "dtype": "bfloat16",
+                "bytes": nbytes, "ms": k_ms, "ms_spread": k_spread,
+                "plain_ms": p_ms, "plain_ms_spread": p_spread,
+                "library_ms": l_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by})
+            log(f"  {kernel} {name} b{TIMING_BATCH}: kernel {k_ms * 1e3:.1f} us"
+                f" (spread {k_spread * 1e3:.1f}), plain {p_ms * 1e3:.1f} us, "
+                + (f"library {l_ms * 1e3:.1f} us, " if l_ms else "")
+                + f"bound {bound_ms * 1e3:.1f} us by {bound_by} "
+                f"({nbytes / 1e6:.1f} MB)")
+        del args, cat
+        torch.cuda.empty_cache()
+    return rows
+
+
 def per_step(rows, key):
     """The sum over one training step's launches of a per-call column."""
     return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -886,29 +1181,65 @@ def per_step(rows, key):
 # ---------------------------------------------------------------------------
 
 
+def summed(rows, name, source, replaces, launches, worst, library):
+    """A ``kernels`` line entry whose times sum ``rows``: the launches of
+    one serving forward at batch ``TIMING_BATCH``."""
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches,
+        # ms, plain_ms, bound_ms and library_ms cover these launches
+        "timed_launches": len(rows),
+        "timed_unit": f"one serving forward at batch {TIMING_BATCH}",
+        "max_abs_err": worst,
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in rows) if library else None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from uncertainty_model_tpu_torch.ops.decoder_fused import assemble_z
+    from uncertainty_model_tpu_torch.ops.conv import gated_conv_elu
+    from uncertainty_model_tpu_torch.ops.decoder_fused import (
+        assemble, assemble_z, gate_z, se_squeeze)
     from uncertainty_model_tpu_torch.ops.warp_rows import (
         warp_rows_bwd, warp_rows_fwd)
+    from uncertainty_model_tpu_torch.serving import make_serving_forward
 
+    serving_counters = {"assemble_z": assemble_z, "gate_z": gate_z,
+                        "se_squeeze": se_squeeze, "assemble": assemble,
+                        "gated_conv_elu": gated_conv_elu}
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    # f32 convs and matmuls in full f32 throughout: the plain versions and
+    # the f32 forwards are references
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
     log("phase 1: build")
-    build_kernels(["assemble_z", "warp_rows"])
+    build_kernels(["assemble_z", "decoder_fused", "gated_conv_elu",
+                   "warp_rows"])
 
     log("phase 2: kernels vs plain versions")
     worst = check_assemble_z()
+    glue_worst = check_decoder_glue()
+    conv_worst = check_gated_conv_elu()
     warp_worst = check_warp_rows()
 
-    log("phase 3: serving path")
+    log("phase 3: serving paths")
     model = flagship_model()
-    launches, forward = run_main_path(model, {"assemble_z": assemble_z})
+    launches, forward, x8, ref = run_main_path(model, serving_counters)
+    s2d_forwards, s2d_launches, s2d_errs = run_s2d_paths(
+        model, serving_counters, x8, ref)
+    del x8, ref
 
     log("phase 3b: training path")
     trainer, batch, disp_scale, train_launches = run_training_path(
@@ -917,38 +1248,42 @@ def main() -> int:
 
     log("phase 4: times")
     fwd = time_forward(forward)
+    s2d_fwd = {key: time_forward(f, f"({key}) {S2D_PATHS[key][0]}")
+               for key, f in s2d_forwards.items()}
+    s2d_fwd["a_lax"] = time_forward(
+        make_serving_forward(model, dtype=torch.bfloat16, s2d_stages=(0, 1),
+                             s2d_conv_backend="lax"),
+        "(a) with s2d_conv_backend='lax'")
     stages = time_assemble_z()
+    conv_rows = time_gated_conv()
+    glue_rows = time_decoder_glue()
     x = images(TIMING_BATCH, SEED + 3)
     breakdown = profile_device_time(lambda: forward(x),
                                     f"serving forward b{TIMING_BATCH}")
-    del x
+    breakdown_a = profile_device_time(lambda: s2d_forwards["a"](x),
+                                      f"serving forward (a) b{TIMING_BATCH}")
+    del x, s2d_forwards
+    torch.cuda.empty_cache()
     step = time_train_step(trainer, batch, disp_scale)
     warps = time_warp_rows()
     step_breakdown = profile_device_time(
         lambda: trainer.train_step(batch, disp_scale, TRAIN_LR),
         f"train step b{TRAIN_BATCH}", top=30)
-    log(json.dumps({"forward": fwd, "assemble_z_stages": stages,
-                    "breakdown": breakdown, "train_step": step,
+    log(json.dumps({"forward": fwd, "s2d_forwards": s2d_fwd,
+                    "s2d_vs_eval_model": s2d_errs,
+                    "assemble_z_stages": stages,
+                    "gated_conv_elu_shapes": conv_rows,
+                    "decoder_glue_stages": glue_rows,
+                    "breakdown": breakdown, "breakdown_a": breakdown_a,
+                    "train_step": step,
                     "train_vs_cpu": cpu_check, "warp_rows_shapes": warps,
                     "train_breakdown": step_breakdown}))
 
-    kernels = [{
-        "name": "assemble_z",
-        "route": "cuda",
-        "source": "uncertainty_model_tpu_torch/csrc/assemble_z.cu",
-        "replaces": "uncertainty_model_tpu/ops/pallas/decoder_fused.py:250",
-        "launches": launches["assemble_z"],
-        # ms, plain_ms, bound_ms and library_ms cover these launches
-        "timed_launches": len(stages),
-        "timed_unit": f"one serving forward at batch {TIMING_BATCH}",
-        "max_abs_err": worst,
-        "ms": sum(r["ms"] for r in stages),
-        "plain_ms": sum(r["plain_ms"] for r in stages),
-        "bound_ms": sum(r["bound_ms"] for r in stages),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in stages)
-        else "operations",
-        "library_ms": None,
-    }]
+    csrc = "uncertainty_model_tpu_torch/csrc/"
+    pallas = "uncertainty_model_tpu/ops/pallas/"
+    kernels = [summed(stages, "assemble_z", csrc + "assemble_z.cu",
+                      pallas + "decoder_fused.py:250", launches["assemble_z"],
+                      worst, library=False)]
     # warp_rows: launches counts the whole epoch's; the times cover the
     # launches of one training step; the library call is grid_sample (its
     # backward op for the backward)
@@ -970,6 +1305,17 @@ def main() -> int:
                                        for r in warps) else "operations",
             "library_ms": per_step(warps, f"{d}_library_ms"),
         })
+    # the decoder glue and the gated conv: launches from the forward of the
+    # path that runs each, (a), (b) or (c) of S2D_PATHS
+    for name, path, line in (("gate_z", "b", 360), ("se_squeeze", "c", 448),
+                             ("assemble", "c", 581)):
+        kernels.append(summed(
+            glue_rows[name], name, csrc + "decoder_fused.cu",
+            pallas + f"decoder_fused.py:{line}", s2d_launches[path][name],
+            glue_worst[name], library=name == "gate_z"))
+    kernels.append(summed(
+        conv_rows, "gated_conv_elu", csrc + "gated_conv_elu.cu", pallas + "conv.py:179",
+        s2d_launches["a"]["gated_conv_elu"], conv_worst, library=True))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""The port's ``assemble_z`` against the JAX package's: the plain PyTorch
-version against the JAX fallback and against the Pallas kernel in interpret
-mode.  (The CUDA kernel is held against the plain version on the card by
+"""The port's decoder glue (``assemble_z``, ``gate_z``, ``se_squeeze``,
+``assemble``) against the JAX package's: the plain PyTorch versions against
+the JAX fallbacks and against the Pallas kernels in interpret mode.  (The
+CUDA kernels are held against the plain versions on the card by
 tests/test_torch_kernels_gpu.py and chip_smoke.py.)
 
 Inputs come from a numpy seed and are shared by both sides as numpy arrays.
@@ -140,3 +141,80 @@ def test_wrapper_rejects_bad_shapes(bad):
         k_fm = k_fm[:, :-1]
     with pytest.raises(ValueError):
         tdf.assemble_z(se, skip, xc, disp, bias, k_fm=k_fm)
+
+
+def _gates(seed, b=4, cso=16):
+    return np.random.default_rng(seed).uniform(0.1, 1.0, (b, cso)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_se_squeeze_plain_matches_jax_pallas_interpret(case, interpret):
+    se, skip, _, _, bias, k_fm = _inputs(17, **CASES[case])
+    got = tdf.se_squeeze_plain(*_torch([se, skip, bias, k_fm]))
+    want = jdf.se_squeeze(*_jax([se, skip, bias, k_fm]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_assemble_plain_matches_jax_pallas_interpret(case, interpret):
+    se, skip, xc, disp, bias, k_fm = _inputs(18, **CASES[case])
+    args = [se, skip, _gates(18), xc, disp, bias, k_fm]
+    got = tdf.assemble_plain(*_torch(args))
+    want = jdf.assemble(*_jax(args))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["disp", "no_disp"])
+def test_gate_z_plain_matches_jax_pallas_interpret(case, interpret):
+    cat, _ = tdf.assemble_z_plain(*_torch(_inputs(19, **CASES[case])))
+    gates = _gates(19)
+    want = np.asarray(jdf.gate_z(jnp.asarray(cat.numpy()), jnp.asarray(gates),
+                                 16))
+    before = cat.clone()
+    got = tdf.gate_z_plain(cat, torch.from_numpy(gates), 16)
+    assert got.data_ptr() == cat.data_ptr()  # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got[..., 16:].numpy(), before[..., 16:].numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_assemble_equals_gate_z_of_assemble_z(case, dtype):
+    """The squeeze_first pipeline's tensors equal the gate_z pipeline's bit
+    for bit, and its mean equals assemble_z's."""
+    se, skip, xc, disp, bias, k_fm = _torch(_inputs(20, **CASES[case]),
+                                            dtype=dtype)
+    bias = bias.float()
+    k_fm = None if k_fm is None else k_fm.float()
+    gates = torch.from_numpy(_gates(20)).to(dtype)
+    cat, mean = tdf.assemble_z(se, skip, xc, disp, bias, k_fm)
+    gated = tdf.gate_z(cat, gates, 16)
+    assert torch.equal(tdf.assemble(se, skip, gates, xc, disp, bias, k_fm),
+                       gated)
+    assert torch.equal(tdf.se_squeeze(se, skip, bias, k_fm), mean)
+
+
+def test_glue_wrappers_on_cpu_count_no_launch():
+    se, skip, xc, disp, bias, _ = _torch(_inputs(21))
+    gates = torch.from_numpy(_gates(21))
+    before = (tdf.gate_z.launches, tdf.se_squeeze.launches,
+              tdf.assemble.launches)
+    tdf.gate_z(tdf.assemble(se, skip, gates, xc, disp, bias), gates, 16)
+    tdf.se_squeeze(se, skip, bias)
+    assert (tdf.gate_z.launches, tdf.se_squeeze.launches,
+            tdf.assemble.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["gates", "cso"])
+def test_gate_z_and_assemble_reject_bad_shapes(bad):
+    se, skip, xc, disp, bias, _ = _torch(_inputs(22))
+    gates = torch.from_numpy(_gates(22))
+    cat, _ = tdf.assemble_z(se, skip, xc, disp, bias)
+    with pytest.raises(ValueError):
+        if bad == "gates":
+            tdf.assemble(se, skip, gates[:, :-1], xc, disp, bias)
+        else:
+            tdf.gate_z(cat, gates, cat.shape[-1] + 1)

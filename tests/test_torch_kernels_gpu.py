@@ -163,3 +163,130 @@ def test_warp_rows_forward_is_deterministic_and_rejects_bad_operands():
         twr.warp_rows_fwd(x, src.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(TypeError):
         twr.warp_rows_fwd(x, src.double())
+
+
+# ---------------------------------------------------------------------------
+# gate_z, se_squeeze, assemble
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_decoder_glue_kernels_match_plain(case, dtype):
+    """se_squeeze: its plain version within rtol 1e-3, and assemble_z's
+    mean bit for bit (the same row kernel); assemble: its plain version
+    within assemble_z's tolerance, and gate_z(assemble_z) bit for bit;
+    gate_z: its plain version bit for bit (one rounded product), channels
+    >= Cso untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    se, skip, xc, disp, bias, k_fm = _inputs(20, 3, *SHAPES[case],
+                                             device="cuda", dtype=dt)
+    cso = skip.shape[-1]
+    gates = torch.rand(3, cso, device="cuda").to(dt)
+    before = (tdf.gate_z.launches, tdf.se_squeeze.launches,
+              tdf.assemble.launches)
+    mean = tdf.se_squeeze(se, skip, bias, k_fm)
+    cat = tdf.assemble(se, skip, gates, xc, disp, bias, k_fm)
+    cat_z, mean_z = tdf.assemble_z(se, skip, xc, disp, bias, k_fm)
+    untouched = cat_z[..., cso:].clone()
+    gated = tdf.gate_z(cat_z, gates, cso)
+    torch.cuda.synchronize()
+    assert gated.data_ptr() == cat_z.data_ptr()
+    assert (tdf.gate_z.launches, tdf.se_squeeze.launches,
+            tdf.assemble.launches) == tuple(n + 1 for n in before)
+    torch.testing.assert_close(mean, tdf.se_squeeze_plain(se, skip, bias, k_fm),
+                               rtol=1e-3, atol=1e-5)
+    assert torch.equal(mean, mean_z)
+    tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else \
+        dict(rtol=2 ** -7, atol=1e-2)
+    want = tdf.assemble_plain(se, skip, gates, xc, disp, bias, k_fm)
+    torch.testing.assert_close(cat.float(), want.float(), **tol)
+    assert torch.equal(cat, gated)
+    assert torch.equal(gated[..., cso:], untouched)
+    ref = tdf.gate_z_plain(cat_z.clone(), gates, cso)
+    assert torch.equal(tdf.gate_z(cat_z.clone(), gates, cso), ref)
+
+
+@pytest.mark.gpu
+def test_gate_z_kernel_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cat = torch.zeros(2, 4, 6, 20, device="cuda")
+    with pytest.raises(ValueError):
+        tdf.gate_z(cat, torch.ones(2, 8, device="cuda"), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdf.gate_z(cat.transpose(1, 2), torch.ones(2, 16, device="cuda"), 16)
+
+
+# ---------------------------------------------------------------------------
+# gated_conv_elu
+
+# (n, H, W, extra W pad, C, Co, k): the tiny config's s2d stages, a ragged
+# width beyond one 64-column tile, Co not a multiple of 32, two output
+# channel tiles and two input channel chunks (C = Co = 256)
+CONV_CASES = {
+    "tiny_s0_n4": (4, 8, 16, 0, 32, 32, 5),
+    "tiny_s1_n1": (1, 4, 8, 0, 32, 32, 3),
+    "ragged_n2": (2, 3, 70, 6, 32, 48, 3),
+    "stage0_n3": (3, 2, 20, 4, 128, 128, 5),
+    "stage1_n4": (4, 2, 64, 0, 256, 256, 3),
+}
+
+
+def _conv_inputs(seed, b, n, h, w, extra, c, co, k, dtype):
+    rng = np.random.default_rng(seed)
+    p = (k - 1) // 2
+
+    def t(*shape, scale=1.0, dt=dtype):
+        a = (scale * rng.normal(size=shape)).astype(np.float32)
+        return torch.from_numpy(a).to(device="cuda", dtype=dt)
+
+    xs = [torch.nn.functional.pad(t(b, h, w, c), (0, 0, p, p + extra, p, p))
+          for _ in range(n)]
+    gates = torch.sigmoid(t(n, dt=torch.float32))
+    w_ = t(k, k, c, co, scale=(k * k * c) ** -0.5)
+    return xs, gates, w_, t(co, dt=torch.float32), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_gated_conv_elu_kernel_matches_plain(case, dtype):
+    """bf16: one output ulp (rtol 2^-7, atol 1e-2): the matrix operands
+    equal the plain version's and only the f32 summation order differs.
+    f32: 1e-5 * (1 + the sum of the conv terms' magnitudes), for sums of
+    up to k*k*C terms taken in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import conv as tconv
+
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    n, h, w, extra, c, co, k = CONV_CASES[case]
+    xs, gates, w_, b, width = _conv_inputs(25, 2, n, h, w, extra, c, co, k, dt)
+    before = tconv.gated_conv_elu.launches
+    got = tconv.gated_conv_elu(xs, gates, w_, b, width=width)
+    torch.cuda.synchronize()
+    assert tconv.gated_conv_elu.launches == before + 1
+    want = tconv.gated_conv_elu_plain(xs, gates, w_, b, width=width)
+    assert got.shape == want.shape == (2, h, w, co)
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-2)
+    else:
+        terms = tconv.conv_magnitude(xs, gates, w_, width=width)
+        assert bool(((got - want).abs() <= 1e-5 * (1 + terms)).all())
+
+
+@pytest.mark.gpu
+def test_gated_conv_elu_kernel_refuses_untiled_channels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import conv as tconv
+
+    xs, gates, w_, b, width = _conv_inputs(26, 1, 2, 4, 8, 0, 8, 16, 3,
+                                           torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tconv.gated_conv_elu(xs, gates, w_, b)

@@ -1,8 +1,12 @@
 """The port's serving forward against the JAX package's
-``make_serving_forward(s2d_stages=())`` on the same weights and inputs, and
-the port's hygiene: no JAX, CUDA by default, off-path options refused."""
+``make_serving_forward`` with the same options, on the same weights and
+inputs (the bench path ``s2d_stages=()``, the space-to-depth stages and
+every decoder pipeline, and attention logits scaled up to where the JAX
+package's max-free softmax overflows), and the port's hygiene: no JAX,
+CUDA by default, unported options refused."""
 
 import ast
+import functools
 import os
 import subprocess
 import sys
@@ -16,12 +20,15 @@ import jax
 import jax.numpy as jnp
 
 from torch_port_helpers import (
-    images, models as build_models, to_nchw, to_nhwc_numpy)
+    PORT_MODEL, images, models as build_models, port_model, to_nchw,
+    to_nhwc_numpy)
 
 from uncertainty_model_tpu.serving import make_serving_forward as jax_serving
+from uncertainty_model_tpu.train.convert import convert_model_state_dict
 
 from uncertainty_model_tpu_torch.config import FLAGSHIP_MODEL
-from uncertainty_model_tpu_torch.ops.decoder_fused import assemble_z
+from uncertainty_model_tpu_torch.ops import conv as tconv
+from uncertainty_model_tpu_torch.ops import decoder_fused as tdf
 from uncertainty_model_tpu_torch.serving import make_serving_forward
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +41,8 @@ def models():
 
 
 def _jax_forward(jmodel, variables, x, disp_scale, **kw):
-    fwd, params = jax_serving(jmodel, variables, s2d_stages=(), **kw)
+    kw.setdefault("s2d_stages", ())
+    fwd, params = jax_serving(jmodel, variables, **kw)
     out = jax.jit(lambda p, x: fwd(p, x, disp_scale))(params, jnp.asarray(x))
     return np.asarray(out).astype(np.float32)
 
@@ -86,12 +94,64 @@ def test_bf16_close_to_jax_bf16(models):
     assert np.abs(got - want).max() < 0.05
 
 
-def test_cpu_forward_launches_no_kernel(models):
+# the JAX package's default encoder (s2d stages 0-1; the tiny config has
+# the flagship's k=7 and k=5 there) with each conv backend and attention
+# mode, and each decoder pipeline on the bench path and on the s2d path
+S2D = {"s2d_stages": (0, 1)}
+PARITY_OPTIONS = {
+    "s2d_pallas_s2d_attention": dict(S2D),
+    "s2d_pallas_native_attention": dict(S2D, s2d_attention="native"),
+    "s2d_lax_s2d_attention": dict(S2D, s2d_conv_backend="lax"),
+    "s2d_lax_native_attention": dict(S2D, s2d_conv_backend="lax",
+                                     s2d_attention="native"),
+    "s2d_stage0_only": {"s2d_stages": (0,)},
+    "gate_z": {"dec_pipeline": "gate_z"},
+    "squeeze_first": {"dec_pipeline": "squeeze_first"},
+    "s2d_gate_z": dict(S2D, dec_pipeline="gate_z"),
+    "s2d_squeeze_first": dict(S2D, dec_pipeline="squeeze_first"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARITY_OPTIONS))
+def test_f32_options_match_jax_serving(models, name):
+    """The same options on both sides, f32, the JAX package's
+    max-subtracting softmaxes (smax="window")."""
+    jmodel, variables, model = models
+    options = PARITY_OPTIONS[name]
+    x = images(48)
+    want = _jax_forward(jmodel, variables, x, 0.7, dtype=None, smax="window",
+                        **options)
+    got = make_serving_forward(model, torch.float32, device="cpu", **options)(
+        torch.from_numpy(x), disp_scale=0.7)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("pipeline", ["gate_fold", "squeeze_first"])
+def test_bf16_s2d_close_to_jax_bf16(models, pipeline):
+    jmodel, variables, model = models
+    x = images(49, batch=1)
+    want = _jax_forward(jmodel, variables, x, 1.0, dtype=jnp.bfloat16,
+                        dec_pipeline=pipeline, **S2D)
+    got = make_serving_forward(model, torch.bfloat16, device="cpu",
+                               dec_pipeline=pipeline, **S2D)(
+        torch.from_numpy(x)).float().numpy()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < 0.05
+
+
+COUNTED = (tdf.assemble_z, tdf.gate_z, tdf.se_squeeze, tdf.assemble,
+           tconv.gated_conv_elu)
+
+
+@pytest.mark.parametrize("pipeline", ["gate_fold", "gate_z", "squeeze_first"])
+def test_cpu_forward_launches_no_kernel(models, pipeline):
     _, _, model = models
-    before = assemble_z.launches
-    make_serving_forward(model, torch.float32, device="cpu")(
-        torch.from_numpy(images(46, batch=1)))
-    assert assemble_z.launches == before
+    before = [fn.launches for fn in COUNTED]
+    for options in ({}, S2D):
+        make_serving_forward(model, torch.float32, device="cpu",
+                             dec_pipeline=pipeline, **options)(
+            torch.from_numpy(images(46, batch=1)))
+    assert [fn.launches for fn in COUNTED] == before
 
 
 def test_default_device_is_cuda(models):
@@ -102,13 +162,79 @@ def test_default_device_is_cuda(models):
 
 
 @pytest.mark.parametrize("option", [
-    {"s2d_stages": (0, 1)}, {"fused_stages": ()}, {"fused_stages": (1, 2, 3, 4)},
-    {"dec_pipeline": "gate_z"}, {"dec_pipeline": "squeeze_first"},
-    {"elu_fold": True},
+    {"s2d_conv_backend": "cudnn"}, {"fused_stages": ()},
+    {"fused_stages": (1, 2, 3, 4)}, {"dec_pipeline": "gate_fold_z"},
+    {"s2d_attention": "phase"}, {"elu_fold": True},
 ])
 def test_off_path_options_raise(models, option):
     with pytest.raises(ValueError):
         make_serving_forward(models[2], torch.float32, device="cpu", **option)
+
+
+# ---------------------------------------------------------------------------
+# attention logits scaled up
+
+
+@functools.lru_cache(maxsize=None)
+def _scaled_models(scale):
+    """The tiny model with every encoder attention's key and query
+    projections scaled by ``scale``, on both sides."""
+    jmodel, _, model = build_models("fc")
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    for k in sd:
+        if ".keys." in k or ".queries." in k:
+            sd[k] *= scale
+    variables = convert_model_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, PORT_MODEL["decoder"]["layers"])
+    return jmodel, variables, port_model(PORT_MODEL, variables)
+
+
+def _max_logit(model, x):
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append(out.abs().max().item()))
+        for name, m in model.named_modules()
+        if name.endswith((".keys", ".queries"))]
+    with torch.no_grad():
+        model(to_nchw(x))
+    for h in hooks:
+        h.remove()
+    return max(seen)
+
+
+# (scale, lowest and highest max |logit|): logits of O(30-90), and beyond
+# 88, where exp overflows in f32
+SCALES = {"logits_57": (40.0, 30.0, 88.0), "logits_99": (70.0, 88.7, 200.0)}
+
+
+@pytest.mark.parametrize("case", sorted(SCALES))
+@pytest.mark.parametrize("path", ["bench", "s2d"])
+def test_large_attention_logits(path, case):
+    """The port subtracts the max in every softmax, so its forward stays
+    finite and equals the JAX package's max-subtracting formulation
+    (smax="window") at logits where the JAX default (smax="nomax")
+    overflows: f32 at rtol 1e-4, atol 1e-5; bf16 within 0.05."""
+    scale, lo, hi = SCALES[case]
+    jmodel, variables, model = _scaled_models(scale)
+    options = S2D if path == "s2d" else {}
+    x = images(50, batch=1)
+    assert lo < _max_logit(model, x) < hi
+    want = _jax_forward(jmodel, variables, x, 1.0, dtype=None, smax="window",
+                        **options)
+    got = make_serving_forward(model, torch.float32, device="cpu", **options)(
+        torch.from_numpy(x)).numpy()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    want16 = _jax_forward(jmodel, variables, x, 1.0, dtype=jnp.bfloat16,
+                          smax="window", **options)
+    got16 = make_serving_forward(model, torch.bfloat16, device="cpu",
+                                 **options)(torch.from_numpy(x)).float().numpy()
+    assert np.isfinite(got16).all()
+    assert np.abs(got16 - want16).max() < 0.05
+    if lo > 88.7 and path == "bench":
+        nomax = _jax_forward(jmodel, variables, x, 1.0, dtype=None,
+                             smax="nomax")
+        assert not np.isfinite(nomax).all()
 
 
 def test_flagship_config_equals_yml():

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into ``_build/lib<name>_<hash>.so`` (a directory git ignores) the
-first time it is used, and again whenever the source or the flags change;
-the library is then loaded with ``ctypes``.  Nothing here runs at import
+first time it is used, and again whenever the source, a shared header
+(``csrc/*.cuh``) or the flags change; the library is then loaded with
+``ctypes``.  Nothing here runs at import
 time, so the package imports on machines without ``nvcc`` or a GPU.
 """
 
@@ -40,8 +41,11 @@ def library_path(name: str) -> str:
     the library's path.  The compiler's output (``-Xptxas=-v`` register and
     shared-memory counts) is kept beside it as ``.log``."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     stem = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}")
     lib = stem + ".so"
     if os.path.exists(lib):

@@ -1,0 +1,166 @@
+"""Gated conv + ELU of the space-to-depth encoder stages: ``gated_conv_elu``
+(the port of the JAX package's ``ops/pallas/conv.py::gated_conv_elu``).
+
+On a CUDA tensor the wrapper launches the hand-written Hopper kernel
+``csrc/gated_conv_elu.cu``; on a CPU tensor it runs
+:func:`gated_conv_elu_plain`, the same function in plain PyTorch, which the
+tests hold against the JAX package and ``chip_smoke.py`` holds the kernel
+against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 16}  # the kernel's tiles
+_SMEM_LIMIT = 232448  # shared memory a block may use on the card
+_MAX_INPUTS = 4
+
+
+def _shapes(xs, gates, w, b, width):
+    """Validate the operands; return (n, B, H, Wp, W, C, Co, k)."""
+    n = len(xs)
+    if not 1 <= n <= _MAX_INPUTS:
+        raise ValueError(f"gated_conv_elu takes 1 to {_MAX_INPUTS} inputs, "
+                         f"not {n}")
+    if w.ndim != 4 or w.shape[0] != w.shape[1] or w.shape[0] % 2 == 0:
+        raise ValueError(f"w {tuple(w.shape)} is not an odd square HWIO kernel")
+    k, _, c, co = w.shape
+    p = (k - 1) // 2
+    if any(x.ndim != 4 or x.shape != xs[0].shape for x in xs):
+        raise ValueError("gated_conv_elu inputs must share one NHWC shape, not "
+                         f"{[tuple(x.shape) for x in xs]}")
+    b_, hp, wp, cin = xs[0].shape
+    if cin != c or hp <= 2 * p:
+        raise ValueError(f"inputs {tuple(xs[0].shape)} do not fit the kernel "
+                         f"{tuple(w.shape)}")
+    if width is None:
+        width = wp - 2 * p
+    if not 1 <= width <= wp - 2 * p:
+        raise ValueError(f"width {width} does not fit padded width {wp}")
+    if gates.numel() != n:
+        raise ValueError(f"{gates.numel()} gates for {n} inputs")
+    if tuple(b.shape) != (co,):
+        raise ValueError(f"bias {tuple(b.shape)} is not ({co},)")
+    return n, b_, hp - 2 * p, wp, width, c, co, k
+
+
+def gated_sum(xs, gates):
+    """``sum_i gates[i] * xs[i]`` in the inputs' type, in the JAX package's
+    order: the gates cast to that type, then each product and each running
+    sum rounded to it."""
+    g = gates.to(xs[0].dtype)
+    h = g[0] * xs[0]
+    for i in range(1, len(xs)):
+        h = h + g[i] * xs[i]
+    return h
+
+
+def gated_conv_elu_plain(xs, gates, w, b, width=None):
+    """Plain PyTorch ``gated_conv_elu``: the gated sum as :func:`gated_sum`,
+    then the VALID conv, bias and ELU in f32 with one rounding to the
+    inputs' type at the end (the Pallas kernel's epilogue)."""
+    dims = _shapes(xs, gates, w, b, width)
+    p = (w.shape[0] - 1) // 2
+    h = gated_sum(xs, gates)[:, :, :dims[4] + 2 * p]
+    y = F.conv2d(h.permute(0, 3, 1, 2).float(),
+                 w.permute(3, 2, 0, 1).float(), b.float())
+    return F.elu(y).permute(0, 2, 3, 1).to(xs[0].dtype).contiguous()
+
+
+def conv_magnitude(xs, gates, w, width=None):
+    """Per output (B, H, W, Co), the sum of the magnitudes of the conv's
+    terms, |gated sum| convolved with |w| in f32: the scale of the rounding
+    an f32 sum of those terms in any order can carry (for tolerances)."""
+    p = (w.shape[0] - 1) // 2
+    width = _shapes(xs, gates, w, w.new_zeros(w.shape[3]), width)[4]
+    h = gated_sum(xs, gates)[:, :, :width + 2 * p]
+    y = F.conv2d(h.permute(0, 3, 1, 2).float().abs(),
+                 w.permute(3, 2, 0, 1).float().abs())
+    return y.permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("gated_conv_elu")
+    fn = lib.umt_gated_conv_elu
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.umt_gated_conv_elu_smem.argtypes = [ctypes.c_int] * 3
+    lib.umt_gated_conv_elu_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _gated_conv_elu_cuda(xs, gates, w, b, dims):
+    n, batch, h, wp, width, c, co, k = dims
+    dt = xs[0].dtype
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"gated_conv_elu kernel takes float32 or bfloat16, "
+                        f"not {dt}")
+    dev = xs[0].device
+    gates = gates.to(dtype=dt).contiguous()
+    b = b.float().contiguous()
+    for t in [*xs, w, gates, b]:
+        if t.device != dev:
+            raise ValueError("gated_conv_elu operands must share one device")
+    for t in [*xs, w]:
+        if t.dtype != dt:
+            raise TypeError("gated_conv_elu operands must share one dtype")
+    for t in [*xs, w, b]:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("gated_conv_elu takes contiguous, 16-byte "
+                             "aligned tensors")
+    mult = _CHANNEL_MULTIPLE[dt]
+    if c % mult or co % mult:
+        raise ValueError(f"gated_conv_elu kernel takes {dt} channel counts "
+                         f"that are multiples of {mult}, not {c} -> {co}")
+    lib = _library()
+    smem = lib.umt_gated_conv_elu_smem(_DTYPE_CODES[dt], k, c)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"gated_conv_elu kernel needs {smem} bytes of shared "
+                         f"memory for k={k}, C={c}; a block has {_SMEM_LIMIT}")
+    out = torch.empty((batch, h, width, co), dtype=dt, device=dev)
+    ptrs = (ctypes.c_void_p * _MAX_INPUTS)(
+        *[x.data_ptr() for x in xs], *([None] * (_MAX_INPUTS - n)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.umt_gated_conv_elu(
+            _DTYPE_CODES[dt], ctypes.cast(ptrs, ctypes.c_void_p),
+            gates.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            n, batch, h, wp, width, c, co, k, stream)
+    if err != 0:
+        raise RuntimeError(f"gated_conv_elu kernel launch failed: CUDA error "
+                           f"{err}")
+    gated_conv_elu.launches += 1
+    return out
+
+
+def gated_conv_elu(xs, gates, w, b, width=None):
+    """``ELU(conv(sum_i gates[i] * xs[i], w) + b)`` on PRE-PADDED inputs.
+
+    ``xs``: 1 to 4 zero-padded NHWC tensors (B, H+2p, Wp, C) sharing one
+    shape (a stage's padded node outputs, shared by every consumer);
+    ``Wp`` may exceed W+2p (the JAX package pads to a multiple of 8 for
+    the TPU), so ``width`` names the output width W (default Wp - 2p).
+    ``gates``: (n,) gate scalars, cast to the inputs' type.  ``w``: HWIO
+    (k, k, C, Co); ``b``: (Co,).  Returns (B, H, W, Co).  CPU tensors run
+    the plain version; CUDA tensors launch the kernel (and count the launch
+    in ``gated_conv_elu.launches``) or raise.
+    """
+    dims = _shapes(xs, gates, w, b, width)
+    if xs[0].device.type == "cpu":
+        return gated_conv_elu_plain(xs, gates, w, b, width)
+    if xs[0].device.type != "cuda":
+        raise RuntimeError(f"gated_conv_elu has no kernel for {xs[0].device}")
+    return _gated_conv_elu_cuda(xs, gates, w, b, dims)
+
+
+gated_conv_elu.launches = 0
