@@ -29,13 +29,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    the CPU (the plain versions) from the same weights: the losses, the
    whole step's gradients by their median, and each link of the
    gradient's chain per scale and per parameter;
+3c. run evaluation and checkpoints on the flagship in f32 (TF32 off) at
+   256x512: ``evaluate_model`` at batch 8 over 2 seeded batches (2
+   ``warp_rows`` forward launches a batch, counted); the card's
+   ``eval_step`` at batch 2 against the CPU's with the same weights,
+   inputs and noise; ``Trainer.train_model`` for 2 epochs of 2 batches with
+   an evaluation and a checkpoint every epoch, then ``final`` loaded into a
+   fresh trainer, which must hold the same parameters and Adam moments;
 4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
-   and (a) with ``s2d_conv_backend="lax"``), the training step at batch 8,
-   and each kernel against its plain version, its bound and the PyTorch
-   call that computes the same function (CUDA events, median of 9 with
-   spread), and break the bench path's, (a)'s and one step's device time
-   down by operator (``torch.profiler``);
+   and (a) with ``s2d_conv_backend="lax"``), the training step and the
+   eval step at batch 8, and each kernel against its plain version, its
+   bound and the PyTorch call that computes the same function (CUDA
+   events, median of 9 with spread; ``conv_elu`` and ``upsample2x2``, which
+   no path of the package runs, at the flagship's shapes named below), and
+   break the bench path's, (a)'s, one step's and one eval step's device
+   time down by operator (``torch.profiler``);
 5. print the ``kernels`` line, then the device line last.
+
+Phase 2 also holds ``conv_elu`` (the SAME zero-pad conv, the ungated mode
+of the ``gated_conv_elu`` kernel) at the native encoder's interior conv
+shapes and ``upsample2x2`` at the decoder's 2x upsample sites, at batch 64,
+in bf16 and f32.
 """
 
 from __future__ import annotations
@@ -75,7 +89,19 @@ DSRC_TOL = 1e-5     # warp_rows dsrc: 1e-5 * (1 + sum of the terms' |.|)
 CONV_F32_TOL = 1e-5     # gated_conv_elu f32: 1e-5 * (1 + sum of the terms' |.|)
 WARP_LIBRARY_TOL = 1e-2   # grid_sample vs the kernel (x -> grid rounding)
 PORT_KERNELS = ("decoder_rows", "se_mean", "gate_z_rows", "gated_conv",
-                "warp_rows")   # device kernel names, for the profiler
+                "warp_rows", "upsample2x2")   # device kernel names, for the profiler
+EVAL_BATCH = 8      # the evaluation's batch (the CLI's default)
+EVAL_BATCHES = 2
+EVAL_SSIM_RTOL = 1e-4   # card eval step vs CPU, the summed SSIM of a view
+# card eval step vs CPU, AUSE and AURG: both average over 100 steps the
+# differences of curves near 1, read from an 11x11-pooled error map sorted
+# by uncertainty; the card's disparities differ from the CPU's by ~2e-6,
+# which moves the reconstructions and the error map by ~1e-5, reorders
+# near-tied pooled uncertainties, and the card's cumulative sum rounds in
+# another order than the CPU's over ~1.2e5 pixels a view.  Read: 6.0e-7
+# and 7.4e-7 (NVIDIA H100 80GB HBM3); the limit leaves two orders of
+# magnitude for other weights and inputs
+SPARS_ATOL = 1e-4
 
 # the flagship's fused decoder stages: (name, H, W, Cso, Cu, Cd, cf)
 # (cf > 0: the SE conv's feature-map half is folded into the kernel)
@@ -94,6 +120,27 @@ S2D_CONV_STAGES = (
     ("enc1", 32, 64, 256, 3),
 )
 GATED_INPUTS = (1, 2, 3, 4)
+
+# the flagship's native encoder interior convs at 256x512, the convs the
+# TPU's conv_elu was written for (name, H, W, C = Co, k); the bf16 kernel
+# cannot hold enc4's halo (3 x 66 x 528 bf16) beside its weight slices
+NATIVE_CONV_STAGES = (
+    ("enc0", 128, 256, 32, 7),
+    ("enc1", 64, 128, 64, 5),
+    ("enc2", 32, 64, 128, 3),
+    ("enc3", 16, 32, 256, 3),
+    ("enc4", 8, 16, 512, 3),
+)
+
+# the 2x upsample sites at 256x512 (name, H, W, C): the one the TPU's
+# upsample2x2 was written for (the decoder's 128x256 skip upsample of 32
+# channels), and the 2x resize_bilinear inputs of the unfused decoder
+# stages 0 and 1 (their SE skip features)
+UPSAMPLE_SITES = (
+    ("dec_skip_32", 128, 256, 32),
+    ("dec0_skip", 8, 16, 512),
+    ("dec1_skip", 16, 32, 256),
+)
 
 # the JAX package's default encoder with each decoder pipeline, and the
 # launches a forward must make (every other serving kernel: 0)
@@ -368,6 +415,110 @@ def check_gated_conv_elu():
         f"operands equal the plain version's; only the f32 sum's order "
         f"differs); f32 {CONV_F32_TOL} * (1 + sum of the terms' magnitudes), "
         f"for sums of up to 3,200 terms in another order")
+    return worst
+
+
+def conv_elu_inputs(seed, b, h, w, c, k, dtype):
+    """Unpadded (B, H, W, C) input, an HWIO kernel scaled to keep the
+    output O(1) and an f32 bias, on the card."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, dt=dtype):
+        a = (scale * rng.normal(size=shape)).astype(np.float32)
+        return torch.from_numpy(a).to(device="cuda", dtype=dt)
+
+    return (t(b, h, w, c), t(k, k, c, c, scale=(k * k * c) ** -0.5),
+            t(c, scale=0.1, dt=torch.float32))
+
+
+def fits(fn, *args):
+    """``fn(*args)``, or None where the kernel refuses the shape for its
+    shared memory."""
+    try:
+        return fn(*args)
+    except ValueError as e:
+        if "shared memory" not in str(e):
+            raise
+        log(f"    {e}")
+        return None
+
+
+def check_conv_elu():
+    """``conv_elu`` against its plain version at the native encoder's
+    interior conv shapes at batch ``TIMING_BATCH``; returns the worst abs
+    error."""
+    import torch.nn.functional as F
+
+    from uncertainty_model_tpu_torch.ops.conv import (
+        conv_elu, conv_elu_plain, conv_magnitude)
+
+    worst = 0.0
+    for name, h, w, c, k in NATIVE_CONV_STAGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = conv_elu_inputs(SEED + 60 + k, TIMING_BATCH, h, w, c, k,
+                                   dtype)
+            out = fits(conv_elu, *args)
+            if out is None:
+                log(f"  conv_elu {name} {str(dtype)[6:]:8s}: the kernel "
+                    "does not fit this shape")
+                continue
+            torch.cuda.synchronize()
+            ref = conv_elu_plain(*args)
+            err = (out.float() - ref.float()).abs()
+            if dtype == torch.bfloat16:
+                ok = within(out, ref, **BF16_TOL)
+            else:
+                p = (k - 1) // 2
+                terms = conv_magnitude([F.pad(args[0], (0, 0, p, p, p, p))],
+                                       torch.ones(1, device="cuda"), args[1])
+                ok = bool((err <= CONV_F32_TOL * (1 + terms)).all())
+                del terms
+            err = err.max().item()
+            log(f"  conv_elu {name} {str(dtype)[6:]:8s} {tuple(out.shape)}: "
+                f"max|err|={err:.3g} {'ok' if ok else 'DISAGREES'}")
+            if not ok:
+                fail(f"conv_elu kernel disagrees with its plain version at "
+                     f"{name} {dtype}")
+            worst = max(worst, err)
+            del args, out, ref
+    torch.cuda.empty_cache()
+    log(f"tolerances: bf16 rtol 2^-7 atol {BF16_TOL['atol']}; f32 "
+        f"{CONV_F32_TOL} * (1 + sum of the terms' magnitudes)")
+    return worst
+
+
+def upsample_input(seed, b, h, w, c, dtype):
+    x = np.random.default_rng(seed).normal(size=(b, h, w, c))
+    return torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+
+
+def check_upsample2x2():
+    """``upsample2x2`` against its plain version at the upsample sites at
+    batch ``TIMING_BATCH``; returns the worst abs error."""
+    from uncertainty_model_tpu_torch.ops.upsample import (
+        upsample2x2, upsample2x2_plain)
+
+    worst = 0.0
+    for name, h, w, c in UPSAMPLE_SITES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = upsample_input(SEED + h, TIMING_BATCH, h, w, c, dtype)
+            out = upsample2x2(x)
+            torch.cuda.synchronize()
+            ref = upsample2x2_plain(x)
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = within(out, ref, **(BF16_TOL if dtype == torch.bfloat16
+                                     else F32_TOL))
+            log(f"  upsample2x2 {name} {str(dtype)[6:]:8s} {tuple(out.shape)}:"
+                f" max|err|={err:.3g} bit for bit {torch.equal(out, ref)} "
+                f"{'ok' if ok else 'DISAGREES'}")
+            if not ok:
+                fail(f"upsample2x2 kernel disagrees with its plain version "
+                     f"at {name} {dtype}")
+            worst = max(worst, err)
+            del x, out, ref
+    torch.cuda.empty_cache()
+    log(f"tolerances: f32 rtol {F32_TOL['rtol']} atol {F32_TOL['atol']}; "
+        f"bf16 rtol 2^-7 atol {BF16_TOL['atol']}")
     return worst
 
 
@@ -690,6 +841,139 @@ def check_step_against_cpu(disp_scale):
     if not share < 1:
         fail("the card's model backward differs from the CPU's")
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: evaluation and checkpoints
+# ---------------------------------------------------------------------------
+
+
+def adjust_scale():
+    """The disparity scale of the first epoch, at which evaluation runs."""
+    from uncertainty_model_tpu_torch.utils.schedules import adjust_disparity
+    return adjust_disparity(0)
+
+
+def eval_batches(batch, seed, n=EVAL_BATCHES, device="cuda"):
+    return [stereo_batch(batch, seed + i, device) for i in range(n)]
+
+
+def run_evaluation(counters):
+    """``evaluate_model`` of the flagship at batch ``EVAL_BATCH`` over
+    ``EVAL_BATCHES`` seeded batches, the counters zeroed just before and
+    read just after (2 ``warp_rows`` forward launches a batch, nothing
+    else); the metrics must be finite.  Returns (model, loader, metrics,
+    launches)."""
+    from uncertainty_model_tpu_torch.train import evaluate_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = flagship_trainer(SEED + 20).model
+    loader = eval_batches(EVAL_BATCH, SEED + 21)
+    for fn in counters.values():
+        fn.launches = 0
+    metrics = evaluate_model(model, loader, scale=adjust_scale(), no_pbar=True)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"evaluation: flagship f32 b{EVAL_BATCH} 256x512 x{EVAL_BATCHES}: "
+        f"ssim (left, right) {metrics[0]}, (ause, aurg) {metrics[1]}; "
+        f"launches {launches}")
+    want = {name: 2 * EVAL_BATCHES if name == "warp_rows_fwd" else 0
+            for name in counters}
+    if launches != want:
+        fail(f"evaluation launched {launches}, not {want}")
+    if not np.isfinite(np.ravel(metrics)).all():
+        fail(f"evaluation metrics {metrics}")
+    return model, loader, metrics, launches
+
+
+def check_eval_step_against_cpu():
+    """One ``eval_step`` at batch ``CPU_CHECK_BATCH`` on the card against
+    the same step on the CPU (the plain versions), same weights, inputs and
+    noise: SSIM sums within ``EVAL_SSIM_RTOL``, AUSE and AURG within
+    ``SPARS_ATOL``."""
+    from uncertainty_model_tpu_torch.train import eval_step
+
+    cpu = flagship_trainer(SEED + 22, device="cpu").model
+    card = flagship_trainer(SEED + 22).model
+    batch = stereo_batch(CPU_CHECK_BATCH, SEED + 23, device="cpu")
+    noise = torch.from_numpy(np.random.default_rng(SEED + 24).uniform(
+        size=(CPU_CHECK_BATCH, *batch["left"].shape[1:3], 2)).astype(
+            np.float32))
+    t0 = time.perf_counter()
+    want, _ = eval_step(cpu, batch, adjust_scale(), noise)
+    cpu_s = time.perf_counter() - t0
+    got, _ = eval_step(card, batch, adjust_scale(), noise)
+    result = {}
+    for key in want:
+        w, g = want[key].item(), got[key].item()
+        ok = (abs(g - w) <= EVAL_SSIM_RTOL * abs(w) if key.endswith("ssim")
+              else abs(g - w) <= SPARS_ATOL)
+        result[key] = {"card": g, "cpu": w, "abs": abs(g - w)}
+        log(f"  eval step {key}: card {g:.7f} cpu {w:.7f} (abs {abs(g - w):.3g}"
+            f", rel {abs(g - w) / max(abs(w), 1e-30):.3g}) "
+            f"{'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            fail(f"the card's eval step {key} differs from the CPU's")
+    log(f"  limits: ssim rtol {EVAL_SSIM_RTOL}, ause/aurg atol {SPARS_ATOL}; "
+        f"CPU eval step {cpu_s:.1f} s")
+    return result
+
+
+def run_train_model_with_checkpoints(counters, val_loader):
+    """``Trainer.train_model`` for 2 epochs of 2 batches at batch
+    ``TRAIN_BATCH`` with an evaluation and a checkpoint every epoch (16 + 16
+    ``warp_rows`` launches a step, 2 forward a validation batch); then
+    ``final`` loaded into a fresh trainer must hold the same parameters,
+    BatchNorm statistics and Adam moments (``torch.equal``)."""
+    import os
+    import tempfile
+
+    from uncertainty_model_tpu_torch.train import load_checkpoint
+
+    epochs, steps = 2, 2
+    trainer = flagship_trainer(SEED + 25)
+    loader = eval_batches(TRAIN_BATCH, SEED + 26, n=steps)
+    per_step = sum(n for *_, n in warp_shapes(TRAIN_BATCH))
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses, metrics = trainer.train_model(
+            loader, epochs, TRAIN_LR, val_loader=val_loader, evaluate_every=1,
+            save_every=1, save_model_to=tmp, no_pbar=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        names = sorted(os.listdir(tmp))
+        want = {"warp_rows_fwd": epochs * (steps * per_step
+                                           + 2 * len(val_loader)),
+                "warp_rows_bwd": epochs * steps * per_step}
+        log(f"train_model: {epochs} epochs x {steps} batches, b{TRAIN_BATCH}, "
+            f"{seconds:.1f} s: losses {losses}; validation {metrics}; "
+            f"checkpoints {names}; launches {launches}")
+        if launches != {**dict.fromkeys(counters, 0), **want}:
+            fail(f"train_model launched {launches}, not {want}")
+        if names != ["epoch_001", "epoch_002", "final"]:
+            fail(f"train_model wrote {names}")
+        values = [v for d, u, _ in losses for v in (d, u)]
+        if len(metrics) != epochs or not np.isfinite(
+                values + np.ravel(metrics).tolist()).all():
+            fail(f"train_model losses {losses} or metrics {metrics}")
+        fresh = flagship_trainer(SEED + 27)
+        fresh.load_state(*load_checkpoint(os.path.join(tmp, "final")))
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        trainer.model.state_dict().values(), fresh.model.state_dict().values()))
+    sa, sb = trainer.optimizer.state_dict(), fresh.optimizer.state_dict()
+    same_moments = sa["state"].keys() == sb["state"].keys() and all(
+        torch.equal(sa["state"][i][k], sb["state"][i][k])
+        for i in sa["state"] for k in ("step", "exp_avg", "exp_avg_sq"))
+    log(f"  final reloaded into a fresh trainer: parameters and statistics "
+        f"equal {same_params}, Adam moments equal {same_moments}")
+    if not (same_params and same_moments):
+        fail("the final checkpoint does not restore the trained state")
+    return {"seconds": seconds, "losses": losses, "metrics": metrics,
+            "launches": launches, "checkpoints": names}
 
 
 # ---------------------------------------------------------------------------
@@ -1173,6 +1457,125 @@ def time_decoder_glue():
     return rows
 
 
+def time_eval_step(model, loader):
+    """CUDA-event time of one ``eval_step`` at batch ``EVAL_BATCH`` (median
+    and spread of 9, after 2 warm-up calls) and its device time by
+    operator."""
+    from uncertainty_model_tpu_torch.train import eval_step
+
+    batch = loader[0]
+    noise = torch.rand((EVAL_BATCH, *batch["left"].shape[1:3], 2),
+                       generator=torch.Generator("cuda").manual_seed(SEED),
+                       device="cuda")
+
+    def step():
+        eval_step(model, batch, adjust_scale(), noise)
+
+    ms, spread = time_ms(step, reps=1)
+    log(f"  eval step f32 b{EVAL_BATCH} 256x512: {ms:.2f} ms (spread "
+        f"{spread:.2f} ms over 9), {EVAL_BATCH / ms * 1e3:.1f} images/s")
+    breakdown = profile_device_time(step, f"eval step b{EVAL_BATCH}", top=15)
+    return {"batch": EVAL_BATCH, "ms": ms, "ms_spread": spread,
+            "images_per_s": EVAL_BATCH / ms * 1e3, "breakdown": breakdown}
+
+
+def time_conv_elu():
+    """``conv_elu`` at the native encoder's interior conv shapes at batch
+    ``TIMING_BATCH`` in bf16: the kernel, the plain version and cuDNN's
+    ``F.conv2d`` with bias then ``F.elu`` (two calls), device time per
+    call (``time_graph_ms``).  The bound takes the conv's multiply-adds at
+    the bf16 tensor-core peak.  enc4's row has no kernel time: the kernel
+    does not hold its halo."""
+    import torch.nn.functional as F
+
+    from uncertainty_model_tpu_torch.ops.conv import conv_elu, conv_elu_plain
+
+    rows = []
+    for name, h, w, c, k in NATIVE_CONV_STAGES:
+        x, wt, b = conv_elu_inputs(SEED + 70 + k, TIMING_BATCH, h, w, c, k,
+                                   torch.bfloat16)
+        p = (k - 1) // 2
+        x_lib = x.permute(0, 3, 1, 2)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        b_lib = b.to(torch.bfloat16)
+        fits_kernel = fits(conv_elu, x, wt, b) is not None
+        k_ms, k_spread = (time_graph_ms(lambda: conv_elu(x, wt, b), reps=4)
+                          if fits_kernel else (None, None))
+        p_ms, p_spread = time_graph_ms(lambda: conv_elu_plain(x, wt, b),
+                                       reps=2)
+        l_ms, l_spread = time_graph_ms(
+            lambda: F.elu(F.conv2d(x_lib, w_lib, b_lib, padding=p)), reps=4)
+        pix = TIMING_BATCH * h * w
+        nbytes = 2 * (2 * pix * c + k * k * c * c) + 4 * c
+        ops = 2 * pix * k * k * c * c
+        bound_ms, bound_by = bound(nbytes, ops, BF16_FLOP_PER_S)
+        row = {"stage": name, "k": k, "c": c, "h": h, "w": w,
+               "batch": TIMING_BATCH, "dtype": "bfloat16", "bytes": nbytes,
+               "flop": ops, "ms": k_ms, "ms_spread": k_spread,
+               "plain_ms": p_ms, "plain_ms_spread": p_spread,
+               "library_ms": l_ms, "library_ms_spread": l_spread,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflop_per_s": ops / k_ms / 1e9 if k_ms else None}
+        log(f"  conv_elu {name} {k}x{k} C={c} {h}x{w} b{TIMING_BATCH}: "
+            + (f"kernel {k_ms * 1e3:.1f} us (spread {k_spread * 1e3:.1f}, "
+               f"{row['tflop_per_s']:.1f} TFLOP/s)" if k_ms
+               else "kernel does not fit")
+            + f", plain {p_ms * 1e3:.1f} us, F.conv2d+F.elu "
+            f"{l_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us by "
+            f"{bound_by} ({ops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
+        rows.append(row)
+        del x, x_lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_upsample2x2():
+    """``upsample2x2`` at the upsample sites at batch ``TIMING_BATCH`` in
+    bf16: the kernel, the plain version and ``F.interpolate`` (bilinear,
+    align_corners, on the channels-last NCHW view), which computes the same
+    function; device time per call (``time_graph_ms``), input sets rotating
+    so that about 200 MB pass per sample, more than the 50 MB L2 holds."""
+    import torch.nn.functional as F
+
+    from uncertainty_model_tpu_torch.ops.upsample import (
+        upsample2x2, upsample2x2_plain)
+
+    def library(x):
+        return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                             mode="bilinear", align_corners=True)
+
+    rows = []
+    for name, h, w, c in UPSAMPLE_SITES:
+        elems = TIMING_BATCH * h * w * c
+        nbytes = 2 * 5 * elems + 4 * (2 * w + 4 * 2 * h)
+        n_sets = max(2, min(16, -(-200_000_000 // nbytes)))
+        sets = [(upsample_input(SEED + 80 + i, TIMING_BATCH, h, w, c,
+                                torch.bfloat16),) for i in range(n_sets)]
+        lib_err = (library(sets[0][0]).permute(0, 2, 3, 1).float()
+                   - upsample2x2(sets[0][0]).float()).abs().max().item()
+        reps = max(n_sets, 8)
+        k_ms, k_spread = time_graph_ms(rotating(upsample2x2, sets), reps)
+        p_ms, p_spread = time_graph_ms(rotating(upsample2x2_plain, sets), reps)
+        l_ms, l_spread = time_graph_ms(rotating(library, sets), reps)
+        bound_ms, bound_by = bound(nbytes, 18 * elems)
+        rows.append({"site": name, "shape": [TIMING_BATCH, h, w, c],
+                     "dtype": "bfloat16", "bytes": nbytes, "ms": k_ms,
+                     "ms_spread": k_spread, "plain_ms": p_ms,
+                     "plain_ms_spread": p_spread, "library_ms": l_ms,
+                     "library_ms_spread": l_spread, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "library_max_abs_vs_kernel": lib_err})
+        log(f"  upsample2x2 {name} ({TIMING_BATCH}, {h}, {w}, {c}): kernel "
+            f"{k_ms * 1e3:.1f} us (spread {k_spread * 1e3:.1f}), plain "
+            f"{p_ms * 1e3:.1f} us, F.interpolate {l_ms * 1e3:.1f} us (max abs "
+            f"{lib_err:.3g} from the kernel), bound {bound_ms * 1e3:.1f} us "
+            f"by {bound_by} ({nbytes / 1e6:.1f} MB)")
+        del sets
+        torch.cuda.empty_cache()
+    return rows
+
+
 def per_step(rows, key):
     """The sum over one training step's launches of a per-call column."""
     return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -1181,15 +1584,16 @@ def per_step(rows, key):
 # ---------------------------------------------------------------------------
 
 
-def summed(rows, name, source, replaces, launches, worst, library):
-    """A ``kernels`` line entry whose times sum ``rows``: the launches of
-    one serving forward at batch ``TIMING_BATCH``."""
+def summed(rows, name, source, replaces, launches, worst, library,
+           unit=f"one serving forward at batch {TIMING_BATCH}"):
+    """A ``kernels`` line entry whose times sum ``rows``: by default the
+    launches of one serving forward at batch ``TIMING_BATCH``."""
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
         # ms, plain_ms, bound_ms and library_ms cover these launches
         "timed_launches": len(rows),
-        "timed_unit": f"one serving forward at batch {TIMING_BATCH}",
+        "timed_unit": unit,
         "max_abs_err": worst,
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -1204,16 +1608,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from uncertainty_model_tpu_torch.ops.conv import gated_conv_elu
+    from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble, assemble_z, gate_z, se_squeeze)
+    from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
     from uncertainty_model_tpu_torch.ops.warp_rows import (
         warp_rows_bwd, warp_rows_fwd)
     from uncertainty_model_tpu_torch.serving import make_serving_forward
 
     serving_counters = {"assemble_z": assemble_z, "gate_z": gate_z,
                         "se_squeeze": se_squeeze, "assemble": assemble,
-                        "gated_conv_elu": gated_conv_elu}
+                        "gated_conv_elu": gated_conv_elu,
+                        "conv_elu": conv_elu, "upsample2x2": upsample2x2}
+    train_counters = {"warp_rows_fwd": warp_rows_fwd,
+                      "warp_rows_bwd": warp_rows_bwd}
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1226,13 +1634,15 @@ def main() -> int:
 
     log("phase 1: build")
     build_kernels(["assemble_z", "decoder_fused", "gated_conv_elu",
-                   "warp_rows"])
+                   "warp_rows", "upsample2x2"])
 
     log("phase 2: kernels vs plain versions")
     worst = check_assemble_z()
     glue_worst = check_decoder_glue()
     conv_worst = check_gated_conv_elu()
     warp_worst = check_warp_rows()
+    conv_elu_worst = check_conv_elu()
+    upsample_worst = check_upsample2x2()
 
     log("phase 3: serving paths")
     model = flagship_model()
@@ -1243,8 +1653,16 @@ def main() -> int:
 
     log("phase 3b: training path")
     trainer, batch, disp_scale, train_launches = run_training_path(
-        {"warp_rows_fwd": warp_rows_fwd, "warp_rows_bwd": warp_rows_bwd})
+        train_counters)
     cpu_check = check_step_against_cpu(disp_scale)
+
+    log("phase 3c: evaluation and checkpoints")
+    all_counters = {**serving_counters, **train_counters}
+    eval_model, eval_loader, eval_metrics, eval_launches = run_evaluation(
+        all_counters)
+    eval_vs_cpu = check_eval_step_against_cpu()
+    train_model_run = run_train_model_with_checkpoints(train_counters,
+                                                       eval_loader)
 
     log("phase 4: times")
     fwd = time_forward(forward)
@@ -1269,6 +1687,13 @@ def main() -> int:
     step_breakdown = profile_device_time(
         lambda: trainer.train_step(batch, disp_scale, TRAIN_LR),
         f"train step b{TRAIN_BATCH}", top=30)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    eval_time = time_eval_step(eval_model, eval_loader)
+    del eval_model, eval_loader
+    torch.cuda.empty_cache()
+    conv_elu_rows = time_conv_elu()
+    upsample_rows = time_upsample2x2()
     log(json.dumps({"forward": fwd, "s2d_forwards": s2d_fwd,
                     "s2d_vs_eval_model": s2d_errs,
                     "assemble_z_stages": stages,
@@ -1277,7 +1702,13 @@ def main() -> int:
                     "breakdown": breakdown, "breakdown_a": breakdown_a,
                     "train_step": step,
                     "train_vs_cpu": cpu_check, "warp_rows_shapes": warps,
-                    "train_breakdown": step_breakdown}))
+                    "train_breakdown": step_breakdown,
+                    "evaluation": {"metrics": eval_metrics,
+                                   "launches": eval_launches},
+                    "eval_vs_cpu": eval_vs_cpu,
+                    "train_model": train_model_run, "eval_step": eval_time,
+                    "conv_elu_shapes": conv_elu_rows,
+                    "upsample2x2_sites": upsample_rows}))
 
     csrc = "uncertainty_model_tpu_torch/csrc/"
     pallas = "uncertainty_model_tpu/ops/pallas/"
@@ -1316,6 +1747,20 @@ def main() -> int:
     kernels.append(summed(
         conv_rows, "gated_conv_elu", csrc + "gated_conv_elu.cu", pallas + "conv.py:179",
         s2d_launches["a"]["gated_conv_elu"], conv_worst, library=True))
+    # conv_elu and upsample2x2: no path of the package launches them (0 in
+    # every path's run above); the times sum one call at each shape the
+    # kernel holds (conv_elu: enc0-enc3; enc4 does not fit)
+    kernels.append(summed(
+        [r for r in conv_elu_rows if r["ms"] is not None], "conv_elu",
+        csrc + "gated_conv_elu.cu", pallas + "conv.py:76",
+        launches["conv_elu"], conv_elu_worst, library=True,
+        unit=f"one call at each native encoder interior conv shape it "
+             f"holds, batch {TIMING_BATCH}, bf16"))
+    kernels.append(summed(
+        upsample_rows, "upsample2x2", csrc + "upsample2x2.cu",
+        pallas + "upsample.py:109", launches["upsample2x2"], upsample_worst,
+        library=True,
+        unit=f"one call at each 2x upsample site, batch {TIMING_BATCH}, bf16"))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

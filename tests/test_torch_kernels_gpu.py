@@ -290,3 +290,126 @@ def test_gated_conv_elu_kernel_refuses_untiled_channels():
                                            torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 16"):
         tconv.gated_conv_elu(xs, gates, w_, b)
+
+
+# ---------------------------------------------------------------------------
+# conv_elu (the ungated mode of the gated_conv_elu kernel)
+
+# (B, H, W, C, Co, k): the flagship's native encoder interiors cut to a few
+# rows (7x7 C=32, 5x5 C=64, 3x3 C=256), a ragged width beyond one 64-column
+# tile with Co not a multiple of 32, and a 1-row, 1-column input (all pad)
+CONV_ELU_CASES = {
+    "enc0_7x7": (2, 5, 70, 32, 32, 7),
+    "enc1_5x5": (2, 4, 40, 64, 64, 5),
+    "enc3_3x3": (1, 3, 32, 256, 256, 3),
+    "ragged": (2, 3, 67, 16, 48, 3),
+    "one_pixel": (2, 1, 1, 32, 16, 5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CONV_ELU_CASES))
+def test_conv_elu_kernel_matches_plain(case, dtype):
+    """The SAME zero-pad conv from the unpadded input: bf16 within one
+    output ulp (rtol 2^-7, atol 1e-2); f32 within 1e-5 * (1 + the sum of
+    the conv terms' magnitudes), the sums taken in another order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import conv as tconv
+
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    b, h, w, c, co, k = CONV_ELU_CASES[case]
+    rng = np.random.default_rng(27)
+
+    def t(*shape, scale=1.0, dt=dt):
+        a = (scale * rng.normal(size=shape)).astype(np.float32)
+        return torch.from_numpy(a).to(device="cuda", dtype=dt)
+
+    x, wt, bias = t(b, h, w, c), t(k, k, c, co, scale=(k * k * c) ** -0.5), \
+        t(co, dt=torch.float32)
+    before = (tconv.conv_elu.launches, tconv.gated_conv_elu.launches)
+    got = tconv.conv_elu(x, wt, bias)
+    torch.cuda.synchronize()
+    assert (tconv.conv_elu.launches, tconv.gated_conv_elu.launches) == (
+        before[0] + 1, before[1])
+    want = tconv.conv_elu_plain(x, wt, bias)
+    assert got.shape == want.shape == (b, h, w, co)
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-2)
+    else:
+        p = (k - 1) // 2
+        terms = tconv.conv_magnitude(
+            [torch.nn.functional.pad(x, (0, 0, p, p, p, p))],
+            torch.ones(1, device="cuda"), wt)
+        assert bool(((got - want).abs() <= 1e-5 * (1 + terms)).all())
+
+
+@pytest.mark.gpu
+def test_conv_elu_kernel_refuses_what_it_cannot_hold():
+    """Channel counts the bf16 tiles cannot take, and the flagship's enc4
+    (3x3, C = 512), whose halo does not fit in a block's shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import conv as tconv
+
+    def zeros(*shape):
+        return torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
+
+    bias = torch.zeros(16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tconv.conv_elu(zeros(1, 4, 8, 8), zeros(3, 3, 8, 16), bias)
+    with pytest.raises(ValueError, match="shared memory"):
+        tconv.conv_elu(zeros(1, 8, 16, 512), zeros(3, 3, 512, 16), bias)
+
+
+# ---------------------------------------------------------------------------
+# upsample2x2
+
+# (B, H, W, C): the decoder's 2x sites cut down (C = 32, 512, 256), channel
+# counts that are not a multiple of a 16-byte vector, a 1-row input (one
+# row tap) and a 1-column one
+UPSAMPLE_CASES = {
+    "c32": (2, 16, 24, 32),
+    "c512": (1, 4, 8, 512),
+    "c3": (2, 9, 13, 3),
+    "c12": (1, 6, 5, 12),
+    "one_row": (2, 1, 7, 8),
+    "one_column": (1, 5, 1, 16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(UPSAMPLE_CASES))
+def test_upsample2x2_kernel_matches_plain(case, dtype):
+    """Both passes in the plain version's order, every operation rounded
+    on its own and the intermediate rounded to the storage type: bit for
+    bit in f32 and bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import upsample as tup
+
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(np.random.default_rng(28).normal(
+        size=UPSAMPLE_CASES[case]).astype(np.float32)).to("cuda", dt)
+    before = tup.upsample2x2.launches
+    got = tup.upsample2x2(x)
+    torch.cuda.synchronize()
+    assert tup.upsample2x2.launches == before + 1
+    torch.testing.assert_close(got, tup.upsample2x2_plain(x), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_upsample2x2_kernel_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import upsample as tup
+
+    x = torch.zeros(2, 4, 6, 8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        tup.upsample2x2(x.transpose(1, 2))
+    with pytest.raises(TypeError):
+        tup.upsample2x2(x.double())

@@ -242,7 +242,8 @@ def test_flagship_config_equals_yml():
         assert FLAGSHIP_MODEL == yaml.safe_load(f)["model"]
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "uncertainty_model_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "yaml", "orbax", "matplotlib", "PIL",
+              "uncertainty_model_tpu")
 
 
 def _imports(path):
@@ -266,15 +267,21 @@ def test_port_imports_no_jax():
 
 def test_port_imports_with_jax_blocked():
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'yaml', 'uncertainty_model_tpu'):\n"
+            "for m in ('jax', 'flax', 'yaml', 'orbax', 'matplotlib', 'PIL',\n"
+            "          'uncertainty_model_tpu'):\n"
             "    sys.modules[m] = None\n"
             "import uncertainty_model_tpu_torch.serving\n"
             "import uncertainty_model_tpu_torch.convert\n"
             "import uncertainty_model_tpu_torch.models\n"
             "import uncertainty_model_tpu_torch.ops.warp\n"
+            "import uncertainty_model_tpu_torch.ops.upsample\n"
             "import uncertainty_model_tpu_torch.losses\n"
-            "import uncertainty_model_tpu_torch.utils\n"
-            "import uncertainty_model_tpu_torch.train\n")
+            "import uncertainty_model_tpu_torch.utils.viz\n"
+            "import uncertainty_model_tpu_torch.train\n"
+            "import uncertainty_model_tpu_torch.train.evaluate\n"
+            "import uncertainty_model_tpu_torch.train.metrics\n"
+            "import uncertainty_model_tpu_torch.train.sparsification\n"
+            "import uncertainty_model_tpu_torch.train.checkpoint\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

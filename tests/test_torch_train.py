@@ -249,17 +249,23 @@ def test_train_one_epoch_averages_the_steps(setup):
     assert [s["batch"] for s in seen] == [1]
 
 
-def test_train_model_runs_the_schedules(setup, capsys):
+def test_train_model_runs_the_schedules(setup, capsys, tmp_path):
+    """The schedules, and the JAX CLI's evaluation and checkpoint arguments
+    (cli/main.py:219-231, with its defaults of one evaluation and one
+    checkpoint every 10 epochs) accepted."""
     _, variables = setup
     trainer = _port_trainer(variables)
     losses, metrics = trainer.train_model([_batch(30)], 2, LR, no_pbar=True)
     assert len(losses) == 2 and metrics == []
     assert all(np.isfinite(d) and np.isfinite(u) for d, u, _ in losses)
     assert "disparity scale: 0.30" in capsys.readouterr().out
-    for kwargs in ({"evaluate_every": 1}, {"save_model_to": "out"},
-                   {"save_every": 1}):
-        with pytest.raises(NotImplementedError):
-            trainer.train_model([_batch(30)], 1, LR, **kwargs)
+    losses, metrics = trainer.train_model(
+        [_batch(30)], 10, LR, val_loader=[_batch(31)], evaluate_every=10,
+        save_evaluation_to=str(tmp_path / "results"), save_every=10,
+        save_model_to=str(tmp_path / "model"), no_pbar=True, start_epoch=9)
+    assert len(losses) == 1 and len(metrics) == 1
+    assert sorted(os.listdir(tmp_path / "model")) == ["epoch_010", "final"]
+    assert sorted(os.listdir(tmp_path / "results")) == ["epoch_010"]
 
 
 def test_cpu_step_launches_no_kernel(setup):

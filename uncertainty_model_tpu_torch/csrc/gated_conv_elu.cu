@@ -1,10 +1,11 @@
-// Gated stride-1 conv + bias + ELU of the space-to-depth encoder stages,
-// for Hopper (sm_90a).
+// Stride-1 conv + bias + ELU for Hopper (sm_90a), in two compile-time
+// modes that share everything but the staging of the input.
 //
-// Replaces the TPU kernel uncertainty_model_tpu/ops/pallas/conv.py
-// ::_gated_conv_elu_pallas (body _gated_kernel).  With n = 1..4 zero-padded
-// NHWC inputs x_m (B, H+2p, Wp, C), gates g_m, an HWIO kernel w (k, k, C,
-// Co) and a bias, it writes
+// Gated (kGated = true) replaces the TPU kernel
+// uncertainty_model_tpu/ops/pallas/conv.py::_gated_conv_elu_pallas (body
+// _gated_kernel), the space-to-depth encoder stages' interior conv.  With
+// n = 1..4 zero-padded NHWC inputs x_m (B, H+2p, Wp, C), gates g_m, an HWIO
+// kernel w (k, k, C, Co) and a bias, it writes
 //
 //   out[b,i,j,:] = ELU( sum_{u,v} (sum_m g_m x_m)[b, i+u, j+v, :] @ w[u,v] + bias )
 //
@@ -12,31 +13,45 @@
 // version's order — g_0 x_0, then + g_m x_m for m = 1..n-1, every product
 // and sum rounded on its own (__fmul_rn/__fadd_rn, no FMA contraction) —
 // so the matrix operands equal the plain version's and only the f32
-// summation order of the conv differs.  Bias and ELU are applied in f32,
-// with one rounding at the end.
+// summation order of the conv differs.
+//
+// Plain (kGated = false) replaces conv.py::_conv_elu_pallas (body _kernel):
+// one UNPADDED input x (B, H, W, C), no gate, the SAME zero-pad conv
+//
+//   out[b,i,j,:] = ELU( sum_{u,v} x[b, i+u-p, j+v-p, :] @ w[u,v] + bias )
+//
+// The halo is staged from the unpadded tensor and the rows and columns
+// outside [0, H) x [0, W) are written as zeros while staging, so no padded
+// copy reaches device memory (the TPU kernel pads with jnp.pad first).  The
+// operand is the input itself, not 1 * x.
+//
+// In both modes bias and ELU are applied in f32, with one rounding at the
+// end.
 //
 // What bounds it: operations.  On the flagship's s2d path (256x512 input)
 // stage 0 runs 5x5 taps on a 64x128 grid with C = Co = 128 and stage 1
 // 3x3 taps on 32x64 with C = Co = 256, four launches each: 2.34 TFLOP a
 // forward at batch 64 in bf16, 2.4 ms at the tensor cores' 989 TFLOP/s,
-// against about 0.7 GB (0.2 ms) for a stage-0 launch with four inputs.
+// against about 0.7 GB (0.2 ms) for a stage-0 launch with four inputs.  The
+// native encoder's interior convs (the plain mode at batch 64: 7x7 C=32 on
+// 128x256 down to 3x3 C=256 on 16x32) are 0.1-0.2 TFLOP a call.
 //
 // Design (bf16): an implicit GEMM on the tensor cores, nvcuda::wmma
 // 16x16x16 from shared memory with f32 accumulators in registers.  A
 // block of 8 warps owns 64 output columns of one output row and 128
-// output channels (each warp a 32x32 tile).  It forms the gated sum once,
-// while staging its halo — k input rows by 64+k-1 columns by C channels —
-// into shared memory, so no gated tensor ever reaches device memory and
-// each tap's A operand is a strided view of the halo.  The weights stream
-// through a double buffer, one (tap, input-channel chunk of up to 128)
-// slice at a time, with cp.async.  The TPU design (whole padded rows of a
-// batch element in VMEM, one MXU matmul per tap) does not carry over.
-// The halo and the two weight slices take 170-180 KB at the path's
-// shapes, so one block runs per SM; wgmma, TMA and a deeper pipeline are
-// later work.
+// output channels (each warp a 32x32 tile).  It stages its halo — k input
+// rows by 64+k-1 columns by C channels — into shared memory once (forming
+// the gated sum on the way in the gated mode, so no gated tensor ever
+// reaches device memory), and each tap's A operand is a strided view of
+// the halo.  The weights stream through a double buffer, one (tap,
+// input-channel chunk of up to 128) slice at a time, with cp.async.  The
+// TPU design (whole padded rows of a batch element in VMEM, one MXU matmul
+// per tap) does not carry over.  The halo and the two weight slices take
+// 170-180 KB at the s2d path's shapes, so one block runs per SM; wgmma,
+// TMA and a deeper pipeline are later work.
 //
-// Design (f32, the f32 serving check): the same halo, then FMA on the CUDA
-// cores (no TF32), a block of 256 threads owning 32 output columns by 64
+// Design (f32, the f32 checks): the same halo, then FMA on the CUDA cores
+// (no TF32), a block of 256 threads owning 32 output columns by 64
 // channels, each thread 2 columns by 4 channels.
 
 #include <mma.h>
@@ -58,18 +73,24 @@ constexpr int kSmemLimit = 232448;
 template <typename T>
 struct Args {
   const T* x[kMaxInputs];
-  const T* gates;  // (n,) in the storage type
+  const T* gates;  // (n,) in the storage type; unused when not gated
   const T* w;      // (k, k, C, Co)
   const float* bias;  // (Co,)
   T* out;          // (B, H, W, Co)
-  int n, H, Hp, Wp, W, C, Co, k;
+  int n, H, W, C, Co, k;
+  // the inputs are (B, Hin, Win, C); output (i, j) at tap (u, v) reads
+  // input (i + u - pad, j + v - pad): gated, the pre-padded inputs with
+  // Hin = H+k-1, Win = Wp and pad 0; plain, the unpadded input with
+  // Hin = H, Win = W and pad (k-1)/2
+  int Hin, Win, pad;
 };
 
-// The gated sum of the inputs over input rows i .. i+k-1 and padded
-// columns j0 .. j0+hw-1, into shared memory as [row][column][cp] in the
-// storage type.  Columns at or beyond Wp read as zero: they feed only
-// output columns at or beyond W, which are not stored.
-template <typename T>
+// Input rows i-pad .. i-pad+k-1 and columns j0-pad .. j0-pad+hw-1 into
+// shared memory as [row][column][cp] in the storage type: the gated sum of
+// the inputs, or the one input as it is.  Rows and columns outside the
+// input read as zero: the SAME conv's zero pad, or (gated) columns at or
+// beyond Wp, which feed only output columns at or beyond W, not stored.
+template <typename T, bool kGated>
 __device__ void stage_halo(const Args<T>& a, T* halo, int b, int i, int j0,
                            int hw, int cp) {
   constexpr int kVec = 16 / sizeof(T);
@@ -78,38 +99,44 @@ __device__ void stage_halo(const Args<T>& a, T* halo, int b, int i, int j0,
   float g[kMaxInputs];
 #pragma unroll
   for (int m = 0; m < kMaxInputs; ++m) {
-    g[m] = m < a.n ? Io<T>::load(a.gates + m) : 0.f;
+    g[m] = kGated && m < a.n ? Io<T>::load(a.gates + m) : 0.f;
   }
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const int v = t % cv;
     const int q = (t / cv) % hw;
     const int r = t / cv / hw;
-    const int col = j0 + q;
+    const int row = i + r - a.pad;
+    const int col = j0 + q - a.pad;
     uint4 packed = make_uint4(0, 0, 0, 0);
-    if (col < a.Wp) {
+    if (row >= 0 && row < a.Hin && col >= 0 && col < a.Win) {
       const size_t off =
-          (((size_t)b * a.Hp + i + r) * a.Wp + col) * a.C + (size_t)v * kVec;
-      float s[kVec];
+          (((size_t)b * a.Hin + row) * a.Win + col) * a.C + (size_t)v * kVec;
       uint4 in = *reinterpret_cast<const uint4*>(a.x[0] + off);
-      const T* e = reinterpret_cast<const T*>(&in);
+      if constexpr (kGated) {
+        float s[kVec];
+        const T* e = reinterpret_cast<const T*>(&in);
 #pragma unroll
-      for (int l = 0; l < kVec; ++l) {
-        s[l] = Io<T>::round(__fmul_rn(g[0], Io<T>::load(e + l)));
-      }
+        for (int l = 0; l < kVec; ++l) {
+          s[l] = Io<T>::round(__fmul_rn(g[0], Io<T>::load(e + l)));
+        }
 #pragma unroll
-      for (int m = 1; m < kMaxInputs; ++m) {
-        if (m < a.n) {
-          in = *reinterpret_cast<const uint4*>(a.x[m] + off);
+        for (int m = 1; m < kMaxInputs; ++m) {
+          if (m < a.n) {
+            in = *reinterpret_cast<const uint4*>(a.x[m] + off);
 #pragma unroll
-          for (int l = 0; l < kVec; ++l) {
-            const float p = Io<T>::round(__fmul_rn(g[m], Io<T>::load(e + l)));
-            s[l] = Io<T>::round(__fadd_rn(s[l], p));
+            for (int l = 0; l < kVec; ++l) {
+              const float p =
+                  Io<T>::round(__fmul_rn(g[m], Io<T>::load(e + l)));
+              s[l] = Io<T>::round(__fadd_rn(s[l], p));
+            }
           }
         }
-      }
-      T* o = reinterpret_cast<T*>(&packed);
+        T* o = reinterpret_cast<T*>(&packed);
 #pragma unroll
-      for (int l = 0; l < kVec; ++l) Io<T>::store(o + l, s[l]);
+        for (int l = 0; l < kVec; ++l) Io<T>::store(o + l, s[l]);
+      } else {
+        packed = in;
+      }
     }
     *reinterpret_cast<uint4*>(halo + ((size_t)r * hw + q) * cp + v * kVec) =
         packed;
@@ -158,6 +185,7 @@ __device__ void load_weights(const Args<bf16>& a, bf16* wt, int s, int kc,
   }
 }
 
+template <bool kGated>
 __global__ void __launch_bounds__(kThreads)
     gated_conv_bf16(Args<bf16> a, int kc) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -177,7 +205,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_weights(a, wts, 0, kc, n0);
   cp_async_commit();
-  stage_halo(a, halo, b, i, j0, hw, cp);
+  stage_halo<bf16, kGated>(a, halo, b, i, j0, hw, cp);
 
   const int warp = threadIdx.x / 32;
   const int wm = warp / 4;  // 2 x 4 warps, each 32 columns x 32 channels
@@ -272,6 +300,7 @@ size_t bf16_smem(int k, int c) {
 constexpr int kTWf = 32;  // output columns of a block
 constexpr int kTNf = 64;  // output channels of a block
 
+template <bool kGated>
 __global__ void __launch_bounds__(kThreads) gated_conv_f32(Args<float> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int hw = kTWf + a.k - 1;
@@ -283,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) gated_conv_f32(Args<float> a) {
   blk /= tiles;
   const int i = blk % a.H;
   const int b = blk / a.H;
-  stage_halo(a, halo, b, i, j0, hw, cp);
+  stage_halo<float, kGated>(a, halo, b, i, j0, hw, cp);
   __syncthreads();
 
   const int tx = threadIdx.x % 16;  // 4 output channels each
@@ -340,8 +369,8 @@ size_t f32_smem(int k, int c) {
 
 template <typename T>
 Args<T> make_args(const void* const* xs, const void* gates, const void* w,
-                  const void* bias, void* out, int n, int H, int Wp, int W,
-                  int C, int Co, int k) {
+                  const void* bias, void* out, int n, int H, int W, int Hin,
+                  int Win, int pad, int C, int Co, int k) {
   Args<T> a;
   for (int m = 0; m < kMaxInputs; ++m) {
     a.x[m] = static_cast<const T*>(m < n ? xs[m] : xs[0]);
@@ -352,19 +381,55 @@ Args<T> make_args(const void* const* xs, const void* gates, const void* w,
   a.out = static_cast<T*>(out);
   a.n = n;
   a.H = H;
-  a.Hp = H + k - 1;
-  a.Wp = Wp;
   a.W = W;
   a.C = C;
   a.Co = Co;
   a.k = k;
+  a.Hin = Hin;
+  a.Win = Win;
+  a.pad = pad;
   return a;
+}
+
+template <bool kGated>
+int launch(int dtype, const void* const* xs, const void* gates,
+           const void* w, const void* bias, void* out, int n, int B, int H,
+           int W, int Hin, int Win, int pad, int C, int Co, int k,
+           cudaStream_t s) {
+  if (dtype == 1) {
+    const size_t smem = bf16_smem(k, C);
+    if (smem > kSmemLimit || C % 16 || Co % 16) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        gated_conv_bf16<kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H * ((W + kTW - 1) / kTW), (Co + kTN - 1) / kTN);
+    gated_conv_bf16<kGated><<<grid, kThreads, smem, s>>>(
+        make_args<bf16>(xs, gates, w, bias, out, n, H, W, Hin, Win, pad, C,
+                        Co, k),
+        bf16_chunk(C));
+    return cudaGetLastError();
+  }
+  if (dtype == 0) {
+    const size_t smem = f32_smem(k, C);
+    if (smem > kSmemLimit || C % 4 || Co % 4) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        gated_conv_f32<kGated>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(B * H * ((W + kTWf - 1) / kTWf), (Co + kTNf - 1) / kTNf);
+    gated_conv_f32<kGated><<<grid, kThreads, smem, s>>>(make_args<float>(
+        xs, gates, w, bias, out, n, H, W, Hin, Win, pad, C, Co, k));
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Shared memory a launch needs, in bytes (the wrapper refuses shapes above
-// the card's 227 KB a block).  dtype: 0 = float32, 1 = bfloat16.
+// Shared memory a launch needs, in bytes, in either mode (the wrapper
+// refuses shapes above the card's 227 KB a block).  dtype: 0 = float32,
+// 1 = bfloat16.
 extern "C" long long umt_gated_conv_elu_smem(int dtype, int k, int C) {
   return dtype == 1 ? (long long)bf16_smem(k, C) : (long long)f32_smem(k, C);
 }
@@ -380,32 +445,19 @@ extern "C" int umt_gated_conv_elu(int dtype, const void* const* xs,
                                   const void* bias, void* out, int n, int B,
                                   int H, int Wp, int W, int C, int Co, int k,
                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1 || n > kMaxInputs) return cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const size_t smem = bf16_smem(k, C);
-    if (smem > kSmemLimit || C % 16 || Co % 16) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        gated_conv_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(B * H * ((W + kTW - 1) / kTW), (Co + kTN - 1) / kTN);
-    gated_conv_bf16<<<grid, kThreads, smem, s>>>(
-        make_args<bf16>(xs, gates, w, bias, out, n, H, Wp, W, C, Co, k),
-        bf16_chunk(C));
-    return cudaGetLastError();
-  }
-  if (dtype == 0) {
-    const size_t smem = f32_smem(k, C);
-    if (smem > kSmemLimit || C % 4 || Co % 4) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        gated_conv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(B * H * ((W + kTWf - 1) / kTWf), (Co + kTNf - 1) / kTNf);
-    gated_conv_f32<<<grid, kThreads, smem, s>>>(
-        make_args<float>(xs, gates, w, bias, out, n, H, Wp, W, C, Co, k));
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
+  return launch<true>(dtype, xs, gates, w, bias, out, n, B, H, W, H + k - 1,
+                      Wp, 0, C, Co, k, static_cast<cudaStream_t>(stream));
+}
+
+// The SAME zero-pad conv of one unpadded input x (B, H, W, C) with w
+// (k, k, C, Co) in the storage type and bias (Co,) f32 into out (B, H, W,
+// Co), under the same preconditions.
+extern "C" int umt_conv_elu(int dtype, const void* x, const void* w,
+                            const void* bias, void* out, int B, int H, int W,
+                            int C, int Co, int k, void* stream) {
+  const void* xs[1] = {x};
+  return launch<false>(dtype, xs, nullptr, w, bias, out, 1, B, H, W, H, W,
+                       (k - 1) / 2, C, Co, k,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -1,11 +1,14 @@
-"""Gated conv + ELU of the space-to-depth encoder stages: ``gated_conv_elu``
-(the port of the JAX package's ``ops/pallas/conv.py::gated_conv_elu``).
+"""Stride-1 conv + bias + ELU (the port of the JAX package's
+``ops/pallas/conv.py``): ``gated_conv_elu``, the gated interior conv of the
+space-to-depth encoder stages, and ``conv_elu``, the SAME zero-pad conv of
+one unpadded input.
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/gated_conv_elu.cu``; on a CPU tensor it runs
-:func:`gated_conv_elu_plain`, the same function in plain PyTorch, which the
-tests hold against the JAX package and ``chip_smoke.py`` holds the kernel
-against on the card.
+On CUDA tensors both wrappers launch the hand-written Hopper kernel
+``csrc/gated_conv_elu.cu`` (``conv_elu`` is its ungated compile-time mode);
+on CPU tensors they run :func:`gated_conv_elu_plain` and
+:func:`conv_elu_plain`, the same functions in plain PyTorch, which the tests
+hold against the JAX package and ``chip_smoke.py`` holds the kernel against
+on the card.
 """
 
 from __future__ import annotations
@@ -24,15 +27,23 @@ _SMEM_LIMIT = 232448  # shared memory a block may use on the card
 _MAX_INPUTS = 4
 
 
+def _kernel_dims(w, b):
+    """Validate an odd square HWIO kernel and its bias; return (k, C, Co)."""
+    if w.ndim != 4 or w.shape[0] != w.shape[1] or w.shape[0] % 2 == 0:
+        raise ValueError(f"w {tuple(w.shape)} is not an odd square HWIO kernel")
+    k, _, c, co = w.shape
+    if tuple(b.shape) != (co,):
+        raise ValueError(f"bias {tuple(b.shape)} is not ({co},)")
+    return k, c, co
+
+
 def _shapes(xs, gates, w, b, width):
     """Validate the operands; return (n, B, H, Wp, W, C, Co, k)."""
     n = len(xs)
     if not 1 <= n <= _MAX_INPUTS:
         raise ValueError(f"gated_conv_elu takes 1 to {_MAX_INPUTS} inputs, "
                          f"not {n}")
-    if w.ndim != 4 or w.shape[0] != w.shape[1] or w.shape[0] % 2 == 0:
-        raise ValueError(f"w {tuple(w.shape)} is not an odd square HWIO kernel")
-    k, _, c, co = w.shape
+    k, c, co = _kernel_dims(w, b)
     p = (k - 1) // 2
     if any(x.ndim != 4 or x.shape != xs[0].shape for x in xs):
         raise ValueError("gated_conv_elu inputs must share one NHWC shape, not "
@@ -47,9 +58,16 @@ def _shapes(xs, gates, w, b, width):
         raise ValueError(f"width {width} does not fit padded width {wp}")
     if gates.numel() != n:
         raise ValueError(f"{gates.numel()} gates for {n} inputs")
-    if tuple(b.shape) != (co,):
-        raise ValueError(f"bias {tuple(b.shape)} is not ({co},)")
     return n, b_, hp - 2 * p, wp, width, c, co, k
+
+
+def _conv_elu_shapes(x, w, b):
+    """Validate ``conv_elu``'s operands; return (B, H, W, C, Co, k)."""
+    k, c, co = _kernel_dims(w, b)
+    if x.ndim != 4 or x.shape[3] != c:
+        raise ValueError(f"input {tuple(x.shape)} is not NHWC with the "
+                         f"kernel's {c} channels")
+    return (*x.shape, co, k)
 
 
 def gated_sum(xs, gates):
@@ -75,6 +93,17 @@ def gated_conv_elu_plain(xs, gates, w, b, width=None):
     return F.elu(y).permute(0, 2, 3, 1).to(xs[0].dtype).contiguous()
 
 
+def conv_elu_plain(x, w, b):
+    """Plain PyTorch ``conv_elu``: the SAME zero-pad conv, bias and ELU in
+    f32 with one rounding to the input's type at the end (the Pallas
+    kernel's epilogue)."""
+    _conv_elu_shapes(x, w, b)
+    p = (w.shape[0] - 1) // 2
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.permute(3, 2, 0, 1).float(),
+                 b.float(), padding=p)
+    return F.elu(y).permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
 def conv_magnitude(xs, gates, w, width=None):
     """Per output (B, H, W, Co), the sum of the magnitudes of the conv's
     terms, |gated sum| convolved with |w| in f32: the scale of the rounding
@@ -94,46 +123,57 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.umt_conv_elu.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                                 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.umt_conv_elu.restype = ctypes.c_int
     lib.umt_gated_conv_elu_smem.argtypes = [ctypes.c_int] * 3
     lib.umt_gated_conv_elu_smem.restype = ctypes.c_longlong
     return lib
 
 
-def _gated_conv_elu_cuda(xs, gates, w, b, dims):
-    n, batch, h, wp, width, c, co, k = dims
+def _kernel_operands(name, xs, w, b, c, co, k):
+    """Check the CUDA operands both modes share; return (dtype code, the
+    f32 bias, the library)."""
     dt = xs[0].dtype
     if dt not in _DTYPE_CODES:
-        raise TypeError(f"gated_conv_elu kernel takes float32 or bfloat16, "
-                        f"not {dt}")
-    dev = xs[0].device
-    gates = gates.to(dtype=dt).contiguous()
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, not {dt}")
     b = b.float().contiguous()
-    for t in [*xs, w, gates, b]:
-        if t.device != dev:
-            raise ValueError("gated_conv_elu operands must share one device")
+    for t in [*xs, w, b]:
+        if t.device != xs[0].device:
+            raise ValueError(f"{name} operands must share one device")
     for t in [*xs, w]:
         if t.dtype != dt:
-            raise TypeError("gated_conv_elu operands must share one dtype")
+            raise TypeError(f"{name} operands must share one dtype")
     for t in [*xs, w, b]:
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("gated_conv_elu takes contiguous, 16-byte "
-                             "aligned tensors")
+            raise ValueError(f"{name} takes contiguous, 16-byte aligned "
+                             "tensors")
     mult = _CHANNEL_MULTIPLE[dt]
     if c % mult or co % mult:
-        raise ValueError(f"gated_conv_elu kernel takes {dt} channel counts "
-                         f"that are multiples of {mult}, not {c} -> {co}")
+        raise ValueError(f"{name} kernel takes {dt} channel counts that are "
+                         f"multiples of {mult}, not {c} -> {co}")
     lib = _library()
     smem = lib.umt_gated_conv_elu_smem(_DTYPE_CODES[dt], k, c)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"gated_conv_elu kernel needs {smem} bytes of shared "
-                         f"memory for k={k}, C={c}; a block has {_SMEM_LIMIT}")
-    out = torch.empty((batch, h, width, co), dtype=dt, device=dev)
+        raise ValueError(f"{name} kernel needs {smem} bytes of shared memory "
+                         f"for k={k}, C={c}; a block has {_SMEM_LIMIT}")
+    return _DTYPE_CODES[dt], b, lib
+
+
+def _gated_conv_elu_cuda(xs, gates, w, b, dims):
+    n, batch, h, wp, width, c, co, k = dims
+    code, b, lib = _kernel_operands("gated_conv_elu", xs, w, b, c, co, k)
+    dev = xs[0].device
+    if gates.device != dev:
+        raise ValueError("gated_conv_elu operands must share one device")
+    gates = gates.to(dtype=xs[0].dtype).contiguous()
+    out = torch.empty((batch, h, width, co), dtype=xs[0].dtype, device=dev)
     ptrs = (ctypes.c_void_p * _MAX_INPUTS)(
         *[x.data_ptr() for x in xs], *([None] * (_MAX_INPUTS - n)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.umt_gated_conv_elu(
-            _DTYPE_CODES[dt], ctypes.cast(ptrs, ctypes.c_void_p),
+            code, ctypes.cast(ptrs, ctypes.c_void_p),
             gates.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
             n, batch, h, wp, width, c, co, k, stream)
     if err != 0:
@@ -163,4 +203,31 @@ def gated_conv_elu(xs, gates, w, b, width=None):
     return _gated_conv_elu_cuda(xs, gates, w, b, dims)
 
 
+def conv_elu(x, w, b):
+    """``ELU(conv(x, w) + b)``, the stride-1 SAME zero-pad conv of an
+    UNPADDED NHWC ``x`` (B, H, W, C) with an HWIO ``w`` (k, k, C, Co), k
+    odd, and a (Co,) bias; returns (B, H, W, Co) in ``x``'s type.  CPU
+    tensors run :func:`conv_elu_plain`; CUDA tensors launch the kernel's
+    ungated mode, which zero-fills the pad while staging (counted in
+    ``conv_elu.launches``), or raise.
+    """
+    batch, h, width, c, co, k = _conv_elu_shapes(x, w, b)
+    if x.device.type == "cpu":
+        return conv_elu_plain(x, w, b)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv_elu has no kernel for {x.device}")
+    code, b, lib = _kernel_operands("conv_elu", [x], w, b, c, co, k)
+    out = torch.empty((batch, h, width, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.umt_conv_elu(code, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                               out.data_ptr(), batch, h, width, c, co, k,
+                               stream)
+    if err != 0:
+        raise RuntimeError(f"conv_elu kernel launch failed: CUDA error {err}")
+    conv_elu.launches += 1
+    return out
+
+
 gated_conv_elu.launches = 0
+conv_elu.launches = 0

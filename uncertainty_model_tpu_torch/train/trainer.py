@@ -1,6 +1,6 @@
 """The self-supervised training loop (the port of the JAX package's
 ``train/trainer.py``; reference train/train.py), without the adversarial
-branch.
+branch, with evaluation and checkpoints between epochs.
 
 One step: the 4-scale image pyramid of the stereo pair, the model's
 train-mode forward on the left view (BatchNorm on batch statistics), the
@@ -23,7 +23,10 @@ import torch
 from ..device import resolve_device
 from ..losses import TukraUncertaintyLoss
 from ..ops import reconstruct_pyramid_with_lr, scale_pyramid
+from ..utils.progress import progress_bar
 from ..utils.schedules import adjust_disparity, learning_rate_for_epoch
+from .checkpoint import save_checkpoint
+from .evaluate import evaluate_model
 
 _METRICS = ("disp_loss", "error_loss")
 
@@ -39,8 +42,33 @@ class Trainer:
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.loss = TukraUncertaintyLoss(**(loss_config or {}))
         self.scales = scales
-        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=0.0,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.optimizer = self._adam()
+
+    def _adam(self) -> torch.optim.Adam:
+        return torch.optim.Adam(self.model.parameters(), lr=0.0,
+                                betas=(0.9, 0.999), eps=1e-8)
+
+    def load_state(self, state_dict: dict, train_state: Optional[dict] = None,
+                   disc_state_dict: Optional[dict] = None) -> int:
+        """Load restored weights (``checkpoint.load_checkpoint``, or a
+        reference ``.pt`` through ``load_torch_checkpoint``); returns the
+        epoch to start from.
+
+        With ``train_state`` (the JAX CLI's ``--resume-from``) the Adam
+        moments and step counts are restored too, so that
+        ``train_model(start_epoch=<returned epoch>)`` continues exactly as
+        an uninterrupted run would.  Without it (``--finetune-from``) the
+        weights alone are loaded and the optimizer starts afresh, the
+        reference's semantics (the JAX package's ``Trainer.load_state``)."""
+        if disc_state_dict is not None:
+            raise NotImplementedError(
+                "the discriminator belongs to a later slice of the port")
+        self.model.load_state_dict(state_dict, strict=True)
+        self.optimizer = self._adam()
+        if train_state is None:
+            return 0
+        self.optimizer.load_state_dict(train_state["optimizer"])
+        return int(train_state["epoch"] or 0)
 
     def _input(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32).to(self.device,
@@ -81,7 +109,9 @@ class Trainer:
 
         The losses stay on the device and are read every ``metrics_every``
         batches (or ``gcd(metrics_every, log_every)``), so the host does not
-        wait for each step.  Returns the per-image average losses, as the
+        wait for each step.  ``pbar`` shows a ``tqdm`` bar, or where
+        ``tqdm`` is not installed prints a line every ``log_every`` (else
+        10) batches.  Returns the per-image average losses, as the
         reference computes them (the sum of batch means over the images)."""
         running = dict.fromkeys(_METRICS, 0.0)
         n_images = 0
@@ -89,15 +119,12 @@ class Trainer:
                     "scale": disp_scale}
         pending: list[dict] = []
 
-        iterator = loader
         tepoch = None
         if pbar:
-            import tqdm
-
-            description = (f"Epoch #{epoch_number}" if epoch_number is not None
-                           else "Epoch")
-            tepoch = tqdm.tqdm(loader, description, unit="batch")
-            iterator = tepoch
+            tepoch = progress_bar(loader, f"Epoch #{epoch_number}"
+                                  if epoch_number is not None else "Epoch")
+            if tepoch is None:  # no tqdm: the printed lines instead
+                log_every = log_every or 10
 
         def drain():
             fetched = torch.stack([torch.stack([m[k] for k in _METRICS])
@@ -114,7 +141,7 @@ class Trainer:
         if log_every:
             drain_every = math.gcd(drain_every, log_every)
 
-        for i, batch in enumerate(iterator):
+        for i, batch in enumerate(loader if tepoch is None else tepoch):
             pending.append(self.train_step(batch, disp_scale, lr, i))
             n_images += len(batch["left"])
             if (i + 1) % drain_every != 0:
@@ -141,18 +168,14 @@ class Trainer:
                     start_epoch: int = 0):
         """Epochs ``start_epoch`` .. ``epochs - 1`` with the learning-rate
         schedule and the disparity-scale curriculum (reference
-        train/train.py:173-267).  Returns ``(training_losses,
-        validation_metrics)``: per epoch ``(disp, unc, disc)`` averages, and
-        an empty list until evaluation is ported."""
-        if (val_loader is not None or evaluate_every is not None
-                or save_evaluation_to is not None):
-            raise NotImplementedError(
-                "evaluation belongs to a later slice of the port")
-        if save_every is not None or save_model_to is not None:
-            raise NotImplementedError(
-                "checkpoints belong to a later slice of the port")
-
-        training_losses = []
+        train/train.py:173-267): every ``evaluate_every`` epochs an
+        evaluation on ``val_loader`` at the epoch's disparity scale, every
+        ``save_every`` epochs a checkpoint ``epoch_{NNN}`` in
+        ``save_model_to``, and ``final`` there at the end.  Returns
+        ``(training_losses, validation_metrics)``: per epoch ``(disp, unc,
+        disc)`` averages, and per evaluation ``((left_ssim, right_ssim),
+        (ause, aurg))``."""
+        training_losses, validation_metrics = [], []
         for epoch in range(start_epoch, epochs):
             lr = learning_rate_for_epoch(epoch, learning_rate, finetune)
             disp_scale = 1.0 if finetune else adjust_disparity(epoch)
@@ -169,5 +192,18 @@ class Trainer:
                   f"\n\tuncertainty loss: {averages['unc']:.2e}"
                   f"\n\tdisparity scale: {disp_scale:.2f}"
                   f"\n\ttime: {time.time() - t0:.1f}s")
+
+            if evaluate_every is not None and (epoch + 1) % evaluate_every == 0:
+                validation_metrics.append(evaluate_model(
+                    self.model, val_loader,
+                    save_evaluation_to=save_evaluation_to,
+                    epoch_number=epoch + 1, is_final=False, scale=disp_scale))
+            if (save_every is not None and (epoch + 1) % save_every == 0
+                    and save_model_to is not None):
+                save_checkpoint(save_model_to, self.model, self.optimizer,
+                                epoch_number=epoch + 1)
         print("Training completed.")
-        return training_losses, []
+        if save_model_to is not None:
+            save_checkpoint(save_model_to, self.model, self.optimizer,
+                            is_final=True)
+        return training_losses, validation_metrics
