@@ -41,15 +41,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    eval step at batch 8, and each kernel against its plain version, its
    bound and the PyTorch call that computes the same function (CUDA
    events, median of 9 with spread; ``conv_elu`` and ``upsample2x2``, which
-   no path of the package runs, at the flagship's shapes named below), and
-   break the bench path's, (a)'s, one step's and one eval step's device
-   time down by operator (``torch.profiler``);
+   no path of the package runs, at the flagship's shapes named below;
+   ``gated_conv_elu`` at each s2d stage with 1-4 inputs, so that the time
+   at n = 1 against n = 4 for the same conv work gives the cost of
+   staging the gated sum, beside the registers and spills of each
+   instantiation of its kernel from the build log), and break the bench
+   path's, (a)'s, one step's and one eval step's device time down by
+   operator (``torch.profiler``);
 5. print the ``kernels`` line, then the device line last.
 
 Phase 2 also holds ``conv_elu`` (the SAME zero-pad conv, the ungated mode
-of the ``gated_conv_elu`` kernel) at the native encoder's interior conv
-shapes and ``upsample2x2`` at the decoder's 2x upsample sites, at batch 64,
-in bf16 and f32.
+of the ``gated_conv_elu`` kernel) at the native encoder's five interior
+conv shapes, enc0-enc4, and ``upsample2x2`` at the decoder's 2x upsample
+sites, at batch 64, in bf16 and f32.
 """
 
 from __future__ import annotations
@@ -122,8 +126,7 @@ S2D_CONV_STAGES = (
 GATED_INPUTS = (1, 2, 3, 4)
 
 # the flagship's native encoder interior convs at 256x512, the convs the
-# TPU's conv_elu was written for (name, H, W, C = Co, k); the bf16 kernel
-# cannot hold enc4's halo (3 x 66 x 528 bf16) beside its weight slices
+# TPU's conv_elu was written for (name, H, W, C = Co, k)
 NATIVE_CONV_STAGES = (
     ("enc0", 128, 256, 32, 7),
     ("enc1", 64, 128, 64, 5),
@@ -431,18 +434,6 @@ def conv_elu_inputs(seed, b, h, w, c, k, dtype):
             t(c, scale=0.1, dt=torch.float32))
 
 
-def fits(fn, *args):
-    """``fn(*args)``, or None where the kernel refuses the shape for its
-    shared memory."""
-    try:
-        return fn(*args)
-    except ValueError as e:
-        if "shared memory" not in str(e):
-            raise
-        log(f"    {e}")
-        return None
-
-
 def check_conv_elu():
     """``conv_elu`` against its plain version at the native encoder's
     interior conv shapes at batch ``TIMING_BATCH``; returns the worst abs
@@ -457,11 +448,7 @@ def check_conv_elu():
         for dtype in (torch.bfloat16, torch.float32):
             args = conv_elu_inputs(SEED + 60 + k, TIMING_BATCH, h, w, c, k,
                                    dtype)
-            out = fits(conv_elu, *args)
-            if out is None:
-                log(f"  conv_elu {name} {str(dtype)[6:]:8s}: the kernel "
-                    "does not fit this shape")
-                continue
+            out = conv_elu(*args)
             torch.cuda.synchronize()
             ref = conv_elu_plain(*args)
             err = (out.float() - ref.float()).abs()
@@ -1349,6 +1336,40 @@ def time_warp_rows():
     return rows_out
 
 
+def conv_build_report():
+    """Registers and spills of each instantiation of the conv kernel, from
+    the ``-Xptxas -v`` build log, and the count of wgmma waits or fences
+    ptxas had to add (its C7517/C7519 notes: each may serialise wgmma
+    groups the source pipelines)."""
+    import re
+
+    from uncertainty_model_tpu_torch import _build
+
+    report, name = {}, None
+    for line in _build.build_log("gated_conv_elu").splitlines():
+        m = re.search(r"Compiling entry function '.*gated_conv_(wgmma|f32)"
+                      r"ILb(\d)E(?:Li(\d+)ELi(\d+)E)?", line)
+        if m:
+            kind, gated, n, kc = m.groups()
+            name = (f"{'gated' if gated == '1' else 'plain'} " + (
+                f"bf16 wgmma N={n} kc={kc}" if kind == "wgmma" else "f32"))
+            report[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            report[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line and "registers" in line:
+            report[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    notes = len(re.findall(r"\(C75(?:17|19)\)",
+                           _build.build_log("gated_conv_elu")))
+    for name, r in report.items():
+        log(f"  gated_conv_elu.cu {name}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B "
+            f"spill loads")
+    log(f"  gated_conv_elu.cu: {notes} wgmma waits or fences added by ptxas")
+    return {"functions": report, "ptxas_wgmma_notes": notes}
+
+
 def time_gated_conv():
     """``gated_conv_elu`` at each (stage, inputs) shape of a forward at
     batch ``TIMING_BATCH`` in bf16: the kernel, the plain version and
@@ -1484,8 +1505,7 @@ def time_conv_elu():
     ``TIMING_BATCH`` in bf16: the kernel, the plain version and cuDNN's
     ``F.conv2d`` with bias then ``F.elu`` (two calls), device time per
     call (``time_graph_ms``).  The bound takes the conv's multiply-adds at
-    the bf16 tensor-core peak.  enc4's row has no kernel time: the kernel
-    does not hold its halo."""
+    the bf16 tensor-core peak."""
     import torch.nn.functional as F
 
     from uncertainty_model_tpu_torch.ops.conv import conv_elu, conv_elu_plain
@@ -1499,9 +1519,7 @@ def time_conv_elu():
         w_lib = wt.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         b_lib = b.to(torch.bfloat16)
-        fits_kernel = fits(conv_elu, x, wt, b) is not None
-        k_ms, k_spread = (time_graph_ms(lambda: conv_elu(x, wt, b), reps=4)
-                          if fits_kernel else (None, None))
+        k_ms, k_spread = time_graph_ms(lambda: conv_elu(x, wt, b), reps=4)
         p_ms, p_spread = time_graph_ms(lambda: conv_elu_plain(x, wt, b),
                                        reps=2)
         l_ms, l_spread = time_graph_ms(
@@ -1516,12 +1534,11 @@ def time_conv_elu():
                "plain_ms": p_ms, "plain_ms_spread": p_spread,
                "library_ms": l_ms, "library_ms_spread": l_spread,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflop_per_s": ops / k_ms / 1e9 if k_ms else None}
+               "tflop_per_s": ops / k_ms / 1e9}
         log(f"  conv_elu {name} {k}x{k} C={c} {h}x{w} b{TIMING_BATCH}: "
-            + (f"kernel {k_ms * 1e3:.1f} us (spread {k_spread * 1e3:.1f}, "
-               f"{row['tflop_per_s']:.1f} TFLOP/s)" if k_ms
-               else "kernel does not fit")
-            + f", plain {p_ms * 1e3:.1f} us, F.conv2d+F.elu "
+            f"kernel {k_ms * 1e3:.1f} us (spread {k_spread * 1e3:.1f}, "
+            f"{row['tflop_per_s']:.1f} TFLOP/s), plain {p_ms * 1e3:.1f} us, "
+            f"F.conv2d+F.elu "
             f"{l_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us by "
             f"{bound_by} ({ops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)")
         rows.append(row)
@@ -1673,6 +1690,7 @@ def main() -> int:
                              s2d_conv_backend="lax"),
         "(a) with s2d_conv_backend='lax'")
     stages = time_assemble_z()
+    conv_build = conv_build_report()
     conv_rows = time_gated_conv()
     glue_rows = time_decoder_glue()
     x = images(TIMING_BATCH, SEED + 3)
@@ -1698,6 +1716,7 @@ def main() -> int:
                     "s2d_vs_eval_model": s2d_errs,
                     "assemble_z_stages": stages,
                     "gated_conv_elu_shapes": conv_rows,
+                    "gated_conv_elu_build": conv_build,
                     "decoder_glue_stages": glue_rows,
                     "breakdown": breakdown, "breakdown_a": breakdown_a,
                     "train_step": step,
@@ -1748,14 +1767,13 @@ def main() -> int:
         conv_rows, "gated_conv_elu", csrc + "gated_conv_elu.cu", pallas + "conv.py:179",
         s2d_launches["a"]["gated_conv_elu"], conv_worst, library=True))
     # conv_elu and upsample2x2: no path of the package launches them (0 in
-    # every path's run above); the times sum one call at each shape the
-    # kernel holds (conv_elu: enc0-enc3; enc4 does not fit)
+    # every path's run above); the times sum one call at each shape
     kernels.append(summed(
-        [r for r in conv_elu_rows if r["ms"] is not None], "conv_elu",
-        csrc + "gated_conv_elu.cu", pallas + "conv.py:76",
-        launches["conv_elu"], conv_elu_worst, library=True,
-        unit=f"one call at each native encoder interior conv shape it "
-             f"holds, batch {TIMING_BATCH}, bf16"))
+        conv_elu_rows, "conv_elu", csrc + "gated_conv_elu.cu",
+        pallas + "conv.py:76", launches["conv_elu"], conv_elu_worst,
+        library=True,
+        unit=f"one call at each native encoder interior conv shape, enc0-enc4,"
+             f" batch {TIMING_BATCH}, bf16"))
     kernels.append(summed(
         upsample_rows, "upsample2x2", csrc + "upsample2x2.cu",
         pallas + "upsample.py:109", launches["upsample2x2"], upsample_worst,

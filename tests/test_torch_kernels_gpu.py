@@ -224,14 +224,24 @@ def test_gate_z_kernel_rejects_bad_operands():
 # gated_conv_elu
 
 # (n, H, W, extra W pad, C, Co, k): the tiny config's s2d stages, a ragged
-# width beyond one 64-column tile, Co not a multiple of 32, two output
-# channel tiles and two input channel chunks (C = Co = 256)
+# width beyond one tile, Co not a multiple of 32, two output channel tiles
+# and four input channel chunks (C = Co = 256); the planner's edges: H not
+# a multiple of the tile's rows, W below the narrowest tile, narrow N (Co
+# 16, 32, 48, 64), small chunks (C 16, 32, 48), a Co tile padded past Co
+# (144); and the flagship's s2d stages cut to 3 rows, n = 1..4 each
 CONV_CASES = {
     "tiny_s0_n4": (4, 8, 16, 0, 32, 32, 5),
     "tiny_s1_n1": (1, 4, 8, 0, 32, 32, 3),
     "ragged_n2": (2, 3, 70, 6, 32, 48, 3),
     "stage0_n3": (3, 2, 20, 4, 128, 128, 5),
     "stage1_n4": (4, 2, 64, 0, 256, 256, 3),
+    "rows_ragged": (2, 21, 19, 2, 64, 64, 3),
+    "narrow_w": (3, 5, 5, 0, 16, 16, 5),
+    "c16_co32": (1, 6, 40, 0, 16, 32, 7),
+    "c48_co48": (2, 4, 33, 3, 48, 48, 3),
+    "c64_co144": (1, 3, 20, 0, 64, 144, 3),
+    **{f"s2d0_n{n}": (n, 3, 128, 0, 128, 128, 5) for n in (1, 2, 3, 4)},
+    **{f"s2d1_n{n}": (n, 3, 64, 0, 256, 256, 3) for n in (1, 2, 3, 4)},
 }
 
 
@@ -296,14 +306,22 @@ def test_gated_conv_elu_kernel_refuses_untiled_channels():
 # conv_elu (the ungated mode of the gated_conv_elu kernel)
 
 # (B, H, W, C, Co, k): the flagship's native encoder interiors cut to a few
-# rows (7x7 C=32, 5x5 C=64, 3x3 C=256), a ragged width beyond one 64-column
-# tile with Co not a multiple of 32, and a 1-row, 1-column input (all pad)
+# rows (7x7 C=32, 5x5 C=64, 3x3 C=128, C=256 and C=512: enc4 at its full
+# 8x16), a ragged width beyond one tile with Co not a multiple of 32, a
+# 1-row, 1-column input (all pad), H and W off the tile, C 16 and 48
+# (16-channel chunks), Co 48 and a Co tile padded past Co (144)
 CONV_ELU_CASES = {
     "enc0_7x7": (2, 5, 70, 32, 32, 7),
     "enc1_5x5": (2, 4, 40, 64, 64, 5),
+    "enc2_3x3": (2, 4, 64, 128, 128, 3),
     "enc3_3x3": (1, 3, 32, 256, 256, 3),
+    "enc4_3x3": (2, 8, 16, 512, 512, 3),
     "ragged": (2, 3, 67, 16, 48, 3),
     "one_pixel": (2, 1, 1, 32, 16, 5),
+    "rows_ragged": (1, 19, 21, 64, 64, 3),
+    "c48_co32": (1, 4, 24, 48, 32, 3),
+    "c32_co48": (1, 6, 40, 32, 48, 5),
+    "c64_co144": (1, 3, 20, 64, 144, 3),
 }
 
 
@@ -349,8 +367,8 @@ def test_conv_elu_kernel_matches_plain(case, dtype):
 
 @pytest.mark.gpu
 def test_conv_elu_kernel_refuses_what_it_cannot_hold():
-    """Channel counts the bf16 tiles cannot take, and the flagship's enc4
-    (3x3, C = 512), whose halo does not fit in a block's shared memory."""
+    """Channel counts the bf16 tiles cannot take, and a 31x31 kernel, whose
+    halo chunk of 46x46 pixels does not fit in a block's shared memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from uncertainty_model_tpu_torch.ops import conv as tconv
@@ -359,10 +377,12 @@ def test_conv_elu_kernel_refuses_what_it_cannot_hold():
         return torch.zeros(shape, device="cuda", dtype=torch.bfloat16)
 
     bias = torch.zeros(16, device="cuda")
+    before = tconv.conv_elu.launches
     with pytest.raises(ValueError, match="multiples of 16"):
         tconv.conv_elu(zeros(1, 4, 8, 8), zeros(3, 3, 8, 16), bias)
     with pytest.raises(ValueError, match="shared memory"):
-        tconv.conv_elu(zeros(1, 8, 16, 512), zeros(3, 3, 512, 16), bias)
+        tconv.conv_elu(zeros(1, 8, 16, 64), zeros(31, 31, 64, 16), bias)
+    assert tconv.conv_elu.launches == before
 
 
 # ---------------------------------------------------------------------------
