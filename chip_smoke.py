@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, in bf16 and f32 (``assemble_z``,
    ``gate_z``, ``se_squeeze``, ``assemble``, ``gated_conv_elu``;
-   ``warp_rows`` forward and backward);
+   ``warp_rows`` forward and backward); the decoder glue in bf16 bit for
+   bit (``assemble_z``, ``gate_z``, ``assemble``), ``gate_z`` leaving
+   channels >= Cso unwritten (they hold NaN before and after);
 3. run the serving paths: the 22.5M-parameter flagship model's bf16 serving
    forward at 256x512, batch 8, from random weights made from a seed, with
    the kernel launch counters zeroed just before and read just after; the
@@ -45,8 +47,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``gated_conv_elu`` at each s2d stage with 1-4 inputs, so that the time
    at n = 1 against n = 4 for the same conv work gives the cost of
    staging the gated sum, beside the registers and spills of each
-   instantiation of its kernel from the build log), and break the bench
-   path's, (a)'s, one step's and one eval step's device time down by
+   instantiation of its kernel from the build log; the decoder glue per
+   stage beside its bound and achieved TB/s, ``gate_z`` beside ``mul_``
+   and the bytes of the sectors its z lanes touch, with the registers and
+   spills of each glue instantiation), and break the bench path's, (a)'s,
+   (b)'s, (c)'s, one step's and one eval step's device time down by
    operator (``torch.profiler``);
 5. print the ``kernels`` line, then the device line last.
 
@@ -92,7 +97,7 @@ WHOLE_STEP_MEDIAN_REL = 3e-2   # whole-step gradients card vs CPU, median
 DSRC_TOL = 1e-5     # warp_rows dsrc: 1e-5 * (1 + sum of the terms' |.|)
 CONV_F32_TOL = 1e-5     # gated_conv_elu f32: 1e-5 * (1 + sum of the terms' |.|)
 WARP_LIBRARY_TOL = 1e-2   # grid_sample vs the kernel (x -> grid rounding)
-PORT_KERNELS = ("decoder_rows", "se_mean", "gate_z_rows", "gated_conv",
+PORT_KERNELS = ("decoder_rows", "gate_z_flat", "gated_conv",
                 "warp_rows", "upsample2x2")   # device kernel names, for the profiler
 EVAL_BATCH = 8      # the evaluation's batch (the CLI's default)
 EVAL_BATCHES = 2
@@ -216,6 +221,16 @@ def within(got, want, rtol, atol):
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
+def same_as_plain(got, want):
+    """The decoder glue's tensors against their plain versions: bf16 bit
+    for bit (each operation rounded on its own, as the plain version does
+    it); f32 within ``F32_TOL`` (expm1 and the card's f32 paths may differ
+    by an ulp)."""
+    if got.dtype == torch.bfloat16:
+        return torch.equal(got, want)
+    return within(got, want, **F32_TOL)
+
+
 def check_assemble_z():
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble_z, assemble_z_plain)
@@ -231,8 +246,7 @@ def check_assemble_z():
                 ref_cat, ref_mean = assemble_z_plain(*args)
                 err_cat = (cat.float() - ref_cat.float()).abs().max().item()
                 err_mean = (mean - ref_mean).abs().max().item()
-                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-                ok = (within(cat, ref_cat, **tol)
+                ok = (same_as_plain(cat, ref_cat)
                       and within(mean, ref_mean, MEAN_RTOL, 1e-5))
                 log(f"  assemble_z {name} {str(dtype)[6:]:8s} "
                     f"disp={with_disp!s:5s} fold={bool(cf)!s:5s} "
@@ -243,7 +257,7 @@ def check_assemble_z():
                          f"at {name} {dtype} disp={with_disp}")
                 worst = max(worst, err_cat, err_mean)
     log(f"tolerances: f32 cat rtol {F32_TOL['rtol']} atol {F32_TOL['atol']}; "
-        f"bf16 cat rtol 2^-7 atol {BF16_TOL['atol']}; mean rtol {MEAN_RTOL}")
+        f"bf16 cat bit for bit; mean rtol {MEAN_RTOL}")
     return worst
 
 
@@ -339,30 +353,39 @@ def check_decoder_glue():
                 ref_mean = se_squeeze_plain(se, skip, bias, k_fm)
                 ref_cat = assemble_plain(se, skip, gates, xc, disp, bias, k_fm)
                 ref_gated = gate_z_plain(ungated.clone(), gates, cso)
-                tol = F32_TOL if dtype == torch.float32 else BF16_TOL
                 errs = {
                     "gate_z": (gated.float() - ref_gated.float()).abs().max().item(),
                     "se_squeeze": (mean - ref_mean).abs().max().item(),
                     "assemble": (cat.float() - ref_cat.float()).abs().max().item(),
                 }
-                ok = (within(gated, ref_gated, **tol)
+                ok = (same_as_plain(gated, ref_gated)
                       and within(mean, ref_mean, MEAN_RTOL, 1e-5)
-                      and within(cat, ref_cat, **tol))
+                      and same_as_plain(cat, ref_cat))
                 untouched = torch.equal(gated[..., cso:], ungated[..., cso:])
                 composed = torch.equal(cat, gated)
+                # channels >= Cso hold NaN: gate_z must not store there at
+                # all, not even the value it read
+                sentinel = ungated.clone()
+                sentinel[..., cso:] = float("nan")
+                gate_z(sentinel, gates, cso)
+                unwritten = (bool(sentinel[..., cso:].isnan().all())
+                             and torch.equal(sentinel[..., :cso],
+                                             gated[..., :cso]))
+                good = ok and untouched and composed and unwritten
                 log(f"  {name} {str(dtype)[6:]:8s} disp={with_disp!s:5s} "
                     f"fold={bool(cf)!s:5s} max|err| gate_z {errs['gate_z']:.3g}"
                     f" se_squeeze {errs['se_squeeze']:.3g} assemble "
                     f"{errs['assemble']:.3g}; channels >= Cso untouched "
-                    f"{untouched}; assemble == gate_z(assemble_z) {composed} "
-                    f"{'ok' if ok and untouched and composed else 'DISAGREES'}")
-                if not (ok and untouched and composed):
+                    f"{untouched}, unwritten {unwritten}; assemble == "
+                    f"gate_z(assemble_z) {composed} "
+                    f"{'ok' if good else 'DISAGREES'}")
+                if not good:
                     fail(f"decoder glue kernels disagree at {name} {dtype} "
                          f"disp={with_disp}")
                 for k, v in errs.items():
                     worst[k] = max(worst[k], v)
     log(f"tolerances: f32 rtol {F32_TOL['rtol']} atol {F32_TOL['atol']}; bf16 "
-        f"rtol 2^-7 atol {BF16_TOL['atol']}; se_squeeze mean rtol {MEAN_RTOL}")
+        f"gate_z and assemble bit for bit; se_squeeze mean rtol {MEAN_RTOL}")
     return worst
 
 
@@ -1033,6 +1056,30 @@ def assemble_z_work(b, h, w, cso, cu, cd, cf, itemsize):
     return nbytes, ops
 
 
+def glue_row(name, nbytes, ops, k, p, library=None):
+    """A phase-4 row of a decoder glue kernel at one stage: its time, the
+    plain version's, the library call's, the bound and the achieved
+    rate."""
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"stage": name, "batch": TIMING_BATCH, "dtype": "bfloat16",
+            "bytes": nbytes, "ops": ops, "ms": k[0], "ms_spread": k[1],
+            "plain_ms": p[0], "plain_ms_spread": p[1],
+            "library_ms": library[0] if library else None,
+            "library_ms_spread": library[1] if library else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tb_per_s": nbytes / k[0] / 1e9}
+
+
+def log_glue_row(kernel, row, extra=""):
+    log(f"  {kernel} {row['stage']} b{TIMING_BATCH}: kernel "
+        f"{row['ms'] * 1e3:.1f} us (spread {row['ms_spread'] * 1e3:.1f}, "
+        f"{row['tb_per_s']:.2f} TB/s), plain {row['plain_ms'] * 1e3:.1f} us, "
+        + (f"library {row['library_ms'] * 1e3:.1f} us, "
+           if row["library_ms"] else "")
+        + f"bound {row['bound_ms'] * 1e3:.1f} us by {row['bound_by']} "
+        f"({row['bytes'] / 1e6:.1f} MB){extra}")
+
+
 def time_assemble_z():
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble_z, assemble_z_plain)
@@ -1041,20 +1088,11 @@ def time_assemble_z():
     for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES:
         args = assemble_z_inputs(SEED + 7, TIMING_BATCH, h, w, cso, cu, cd, cf,
                                  torch.bfloat16)
-        k_ms, k_spread = time_ms(lambda: assemble_z(*args), reps=10)
-        p_ms, p_spread = time_ms(lambda: assemble_z_plain(*args), reps=2)
+        k = time_ms(lambda: assemble_z(*args), reps=10)
+        p = time_ms(lambda: assemble_z_plain(*args), reps=2)
         nbytes, ops = assemble_z_work(TIMING_BATCH, h, w, cso, cu, cd, cf, 2)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOP_PER_S * 1e3
-        row = {"stage": name, "batch": TIMING_BATCH, "dtype": "bfloat16",
-               "bytes": nbytes, "ms": k_ms, "ms_spread": k_spread,
-               "plain_ms": p_ms, "plain_ms_spread": p_spread,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        log(f"  assemble_z {name} b{TIMING_BATCH}: kernel {k_ms * 1e3:.1f} us "
-            f"(spread {k_spread * 1e3:.1f}), plain {p_ms * 1e3:.1f} us "
-            f"(spread {p_spread * 1e3:.1f}), bound {row['bound_ms'] * 1e3:.1f} "
-            f"us by {row['bound_by']} ({nbytes / 1e6:.1f} MB)")
+        row = glue_row(name, nbytes, ops, k, p)
+        log_glue_row("assemble_z", row)
         rows.append(row)
         del args
         torch.cuda.empty_cache()
@@ -1421,13 +1459,24 @@ def time_gated_conv():
     return rows
 
 
+def z_sector_bytes(b, h, w, ccat, cso, itemsize=2):
+    """Bytes of the 32-byte sectors that hold z lanes, read and written
+    (what the memory moves for ``gate_z`` at the least, beside its bound's
+    z bytes): each batch's slab starts on a sector here."""
+    n = h * w * ccat
+    z = np.flatnonzero(np.arange(n) % ccat < cso)
+    return 2 * b * 32 * len(np.unique(z * itemsize // 32))
+
+
 def time_decoder_glue():
     """``gate_z``, ``se_squeeze`` and ``assemble`` at the fused stages of a
     forward at batch ``TIMING_BATCH`` in bf16, beside their plain versions
     and, for ``gate_z``, ``cat[..., :cso].mul_(gates)`` (the plain version
-    is that call too); ``se_squeeze`` and ``assemble`` have no single
-    PyTorch call.  ``gate_z`` scales the same tensor in place call after
-    call, which leaves its cost unchanged."""
+    is that call too) and the bytes of the sectors its z lanes touch;
+    ``se_squeeze`` and ``assemble`` have no single PyTorch call.
+    ``gate_z`` scales the same tensor in place call after call, which
+    leaves its cost unchanged.  The SE mean is the row kernel's own last
+    block a batch (no launch of its own)."""
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble, assemble_plain, assemble_z, gate_z, gate_z_plain,
         se_squeeze, se_squeeze_plain)
@@ -1458,24 +1507,58 @@ def time_decoder_glue():
                 None, z_bytes - 2 * TIMING_BATCH * cso, z_ops + pix * cso),
         }
         for kernel, (fn, plain, library, nbytes, ops) in calls.items():
-            k_ms, k_spread = time_ms(fn, reps=10)
-            p_ms, p_spread = time_ms(plain, reps=2)
-            l_ms = time_ms(library, reps=10)[0] if library else None
-            bound_ms, bound_by = bound(nbytes, ops)
-            rows[kernel].append({
-                "stage": name, "batch": TIMING_BATCH, "dtype": "bfloat16",
-                "bytes": nbytes, "ms": k_ms, "ms_spread": k_spread,
-                "plain_ms": p_ms, "plain_ms_spread": p_spread,
-                "library_ms": l_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by})
-            log(f"  {kernel} {name} b{TIMING_BATCH}: kernel {k_ms * 1e3:.1f} us"
-                f" (spread {k_spread * 1e3:.1f}), plain {p_ms * 1e3:.1f} us, "
-                + (f"library {l_ms * 1e3:.1f} us, " if l_ms else "")
-                + f"bound {bound_ms * 1e3:.1f} us by {bound_by} "
-                f"({nbytes / 1e6:.1f} MB)")
+            k = time_ms(fn, reps=10)
+            p = time_ms(plain, reps=2)
+            lib = time_ms(library, reps=10) if library else None
+            row = glue_row(name, nbytes, ops, k, p, lib)
+            extra = ""
+            if kernel == "gate_z":
+                row["sector_bytes"] = z_sector_bytes(TIMING_BATCH, h, w,
+                                                     cso + cu + cd, cso)
+                row["sector_tb_per_s"] = row["sector_bytes"] / k[0] / 1e9
+                extra = (f"; z sectors {row['sector_bytes'] / 1e6:.1f} MB, "
+                         f"{row['sector_tb_per_s']:.2f} TB/s")
+            rows[kernel].append(row)
+            log_glue_row(kernel, row, extra)
         del args, cat
         torch.cuda.empty_cache()
     return rows
+
+
+def glue_build_report():
+    """Registers, spills and stack of each instantiation of the decoder
+    glue's kernels (the row kernel in its three modes, gate_z), from the
+    ``-Xptxas -v`` build logs."""
+    import re
+
+    from uncertainty_model_tpu_torch import _build
+
+    report = {}
+    for lib in ("assemble_z", "decoder_fused"):
+        name = None
+        for line in _build.build_log(lib).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                mangled = m.group(1)
+                k = re.search(r"decoder_rows(I\S+?)EEEv", mangled)
+                g = re.search(r"gate_z_flatI(\S+?)EEv", mangled)
+                name = (f"decoder_rows<{k.group(1)}>" if k else
+                        f"gate_z_flat<{g.group(1)}>" if g else None)
+                if name:
+                    report[name] = {}
+            elif name and "spill stores" in line:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+                stack = re.search(r"(\d+) bytes stack frame", line)
+                report[name].update(spill_stores=int(st), spill_loads=int(ld),
+                                    stack=int(stack.group(1)) if stack else 0)
+            elif name and "Used" in line and "registers" in line:
+                report[name]["registers"] = int(
+                    re.search(r"Used (\d+) registers", line).group(1))
+    for name, r in report.items():
+        log(f"  {name}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B "
+            f"spill loads, {r.get('stack')} B stack")
+    return report
 
 
 def time_eval_step(model, loader):
@@ -1692,12 +1775,15 @@ def main() -> int:
     stages = time_assemble_z()
     conv_build = conv_build_report()
     conv_rows = time_gated_conv()
+    glue_build = glue_build_report()
     glue_rows = time_decoder_glue()
     x = images(TIMING_BATCH, SEED + 3)
     breakdown = profile_device_time(lambda: forward(x),
                                     f"serving forward b{TIMING_BATCH}")
-    breakdown_a = profile_device_time(lambda: s2d_forwards["a"](x),
-                                      f"serving forward (a) b{TIMING_BATCH}")
+    breakdown_s2d = {
+        key: profile_device_time(lambda f=f: f(x),
+                                 f"serving forward ({key}) b{TIMING_BATCH}")
+        for key, f in s2d_forwards.items()}
     del x, s2d_forwards
     torch.cuda.empty_cache()
     step = time_train_step(trainer, batch, disp_scale)
@@ -1718,7 +1804,10 @@ def main() -> int:
                     "gated_conv_elu_shapes": conv_rows,
                     "gated_conv_elu_build": conv_build,
                     "decoder_glue_stages": glue_rows,
-                    "breakdown": breakdown, "breakdown_a": breakdown_a,
+                    "decoder_glue_build": glue_build,
+                    "se_mean": "the row kernel's last block of each batch "
+                               "(no launch of its own)",
+                    "breakdown": breakdown, "breakdown_s2d": breakdown_s2d,
                     "train_step": step,
                     "train_vs_cpu": cpu_check, "warp_rows_shapes": warps,
                     "train_breakdown": step_breakdown,

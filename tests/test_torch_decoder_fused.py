@@ -19,6 +19,7 @@ import uncertainty_model_tpu.ops.pallas.decoder_fused as jdf
 
 from uncertainty_model_tpu_torch.ops import decoder_fused as tdf
 from uncertainty_model_tpu_torch.ops import resize_bilinear, shuffle_phase_major
+from uncertainty_model_tpu_torch.ops.resize import bf16_weights
 
 
 def _inputs(seed, b=4, h2=8, w2=16, cso=16, cu=8, cd=4, cf=None):
@@ -98,24 +99,108 @@ def test_channel_order():
 
 
 def test_fold_equals_unfolded():
+    """The fold is the ordered sum fm[0] k[0] + fm[1] k[1] + ..., each
+    product and sum rounded on its own (the kernel's order)."""
     fm, skip, xc, disp, bias, k_fm = _torch(_inputs(13, cf=3))
     folded = tdf.assemble_z_plain(fm, skip, xc, disp, bias, k_fm=k_fm)
-    unfolded = tdf.assemble_z_plain(fm @ k_fm, skip, xc, disp, bias)
+    se = fm[..., 0:1] * k_fm[0]
+    for ci in range(1, k_fm.shape[0]):
+        se = se + fm[..., ci:ci + 1] * k_fm[ci]
+    unfolded = tdf.assemble_z_plain(se, skip, xc, disp, bias)
     for a, b in zip(folded, unfolded):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _up2_bf16_weights(x):
+    """The 2x upsample in numpy f32 with the JAX package's bf16 weights,
+    H then W, not rounded: x[lo] bf16(1 - frac) + x[hi] bf16(frac)."""
+    _, h2, w2, _ = x.shape
+    lo, hi, a, b = bf16_weights(2 * h2, h2)
+    x = x[:, lo] * a[None, :, None, None] + x[:, hi] * b[None, :, None, None]
+    lo, hi, a, b = bf16_weights(2 * w2, w2)
+    return x[:, :, lo] * a[None, None, :, None] + x[:, :, hi] * b[None, None, :, None]
+
+
 def test_bf16_plain_rounds_once():
-    """bf16 inputs: computed in f32, cast at the end — so the result is the
-    f32 result of the bf16-rounded inputs, rounded once."""
+    """bf16 inputs: z is computed in f32 (the fold in order, up2 with the
+    JAX package's bf16 weights bf16(1 - frac) and bf16(frac), no rounding
+    between the axes) and rounded once; the disparity block likewise.
+    Written out here in numpy; rounding each axis to bf16 gives other
+    values."""
     args = _torch(_inputs(14, cf=3), dtype=torch.bfloat16)
+    fm, skip, xc, disp, bias, k_fm = args
     cat, mean = tdf.assemble_z_plain(*args)
     assert cat.dtype == torch.bfloat16 and mean.dtype == torch.float32
-    ref_cat, _ = tdf.assemble_z_plain(
-        *[None if a is None else a.float() for a in args])
-    torch.testing.assert_close(cat, ref_cat.to(torch.bfloat16), rtol=0, atol=0)
-    torch.testing.assert_close(mean, cat[..., :args[1].shape[-1]].float()
-                               .mean(dim=(1, 2)), rtol=1e-6, atol=1e-6)
+    fm32, k32 = fm.float().numpy(), k_fm.float().numpy()
+    se = fm32[..., 0:1] * k32[0]
+    for ci in range(1, k32.shape[0]):
+        se = se + fm32[..., ci:ci + 1] * k32[ci]
+    se = se + _up2_bf16_weights(skip.float().numpy()) + bias.float().numpy()
+    z = torch.nn.functional.elu(torch.from_numpy(se)).to(torch.bfloat16)
+    cso, cu = skip.shape[-1], xc.shape[-1] // 4
+    assert torch.equal(cat[..., :cso], z)
+    up_disp = torch.from_numpy(_up2_bf16_weights(disp.float().numpy()))
+    assert torch.equal(cat[..., cso + cu:], up_disp.to(torch.bfloat16))
+    per_axis = resize_bilinear(disp, tuple(cat.shape[1:3]))
+    assert not torch.equal(cat[..., cso + cu:], per_axis)
+    torch.testing.assert_close(mean, cat[..., :cso].float().mean(dim=(1, 2)),
+                               rtol=1e-6, atol=1e-6)
+
+
+# the port's bf16 plain versions against the JAX package's in bf16: both
+# take the same bf16 upsample weights, but the JAX package rounds
+# up2(skip_h) after each axis and se + up2 to bf16 before the f32 bias add,
+# where the port rounds z once.  Read on these N(0, 1) inputs: at most
+# 0.03125 (two bf16 steps of |se + up2| in [2, 4)) for the fallback and the
+# interpret-mode kernel alike, and 0.004 in the means over 512 pixels; the
+# limits keep twice that
+BF16_JAX_TOL = dict(rtol=2 ** -7, atol=2 ** -4)
+BF16_JAX_MEAN_ATOL = 1e-2
+
+
+def _bf16(args):
+    """Tensors and arrays in bf16, except bias and k_fm (f32, as serving
+    passes them)."""
+    *acts, bias, k_fm = args
+    return ([None if a is None else torch.from_numpy(a).bfloat16()
+             for a in acts] + _torch([bias, k_fm]),
+            [None if a is None else jnp.asarray(a).astype(jnp.bfloat16)
+             for a in acts] + _jax([bias, k_fm]))
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("kernel", ["assemble_z", "se_squeeze", "assemble"])
+@pytest.mark.parametrize("reference", ["fallback", "interpret"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_plain_close_to_jax_bf16(case, reference, kernel, monkeypatch):
+    monkeypatch.setattr(jdf, "_INTERPRET", reference == "interpret")
+    (se, skip, xc, disp, bias, k_fm), jargs = _bf16(_inputs(30, **CASES[case]))
+    jse, jskip, jxc, jdisp, jbias, jk_fm = jargs
+    gates = _gates(30)
+    if kernel == "assemble_z":
+        got, got_mean = tdf.assemble_z_plain(se, skip, xc, disp, bias, k_fm)
+        want, want_mean = jdf.assemble_z(*jargs)
+    elif kernel == "se_squeeze":
+        got, want = None, None
+        got_mean = tdf.se_squeeze_plain(se, skip, bias, k_fm)
+        want_mean = jdf.se_squeeze(jse, jskip, jbias, jk_fm)
+    else:
+        got_mean, want_mean = None, None
+        got = tdf.assemble_plain(se, skip, torch.from_numpy(gates).bfloat16(),
+                                 xc, disp, bias, k_fm)
+        want = jdf.assemble(jse, jskip, jnp.asarray(gates).astype(jnp.bfloat16),
+                            jxc, jdisp, jbias, jk_fm)
+    if got is not None:
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_f32(got), _f32(want), **BF16_JAX_TOL)
+    if got_mean is not None:
+        np.testing.assert_allclose(got_mean.numpy(), np.asarray(want_mean),
+                                   rtol=0, atol=BF16_JAX_MEAN_ATOL)
 
 
 def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():

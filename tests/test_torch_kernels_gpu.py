@@ -17,7 +17,10 @@ from uncertainty_model_tpu_torch.ops import decoder_fused as tdf
 from uncertainty_model_tpu_torch.ops import warp_rows as twr
 
 # (H/2, W/2, Cso, Cu, Cd, cf): small shapes, odd widths, and the ragged
-# cases the kernel's index arithmetic meets (Cso not a power of two, h2 = 1)
+# cases the kernel's index arithmetic meets (Cso not a power of two, h2 = 1,
+# w2 = 1); odd Cso and Ccat at small W (rows not 16-byte aligned, one
+# channel a thread); rows too wide for one block (column tiles, in bf16
+# and f32)
 SHAPES = {
     "disp": (8, 16, 16, 8, 4, 0),
     "no_disp": (8, 16, 16, 8, 0, 0),
@@ -25,6 +28,10 @@ SHAPES = {
     "fold_no_disp": (4, 7, 32, 4, 0, 3),
     "cso48": (5, 9, 48, 4, 4, 0),
     "one_row": (1, 3, 16, 4, 4, 3),
+    "one_column": (4, 1, 8, 4, 4, 0),
+    "odd_ccat": (3, 5, 5, 3, 1, 0),
+    "odd_fold": (2, 3, 7, 1, 3, 3),
+    "wide_tiles": (4, 400, 32, 8, 4, 3),
 }
 
 
@@ -47,9 +54,9 @@ def _inputs(seed, b, h2, w2, cso, cu, cd, cf, device, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", sorted(SHAPES))
 def test_assemble_z_kernel_matches_plain(case, dtype):
-    """f32: rtol 1e-5, atol 1e-5 (expm1 and the fold's summation order may
-    differ by an ulp); bf16: within one bf16 ulp of the output (rtol 2^-7,
-    atol 1e-2); mean: rtol 1e-3."""
+    """f32: rtol 1e-5, atol 1e-5 (expm1 and the card's f32 paths may
+    differ by an ulp); bf16: bit for bit (each operation rounded on its
+    own, as the plain version does it); mean: rtol 1e-3."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dt = getattr(torch, dtype)
@@ -59,21 +66,96 @@ def test_assemble_z_kernel_matches_plain(case, dtype):
     torch.cuda.synchronize()
     assert tdf.assemble_z.launches == before + 1
     ref_cat, ref_mean = tdf.assemble_z_plain(*args)
-    tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else \
-        dict(rtol=2 ** -7, atol=1e-2)
-    torch.testing.assert_close(cat.float(), ref_cat.float(), **tol)
+    if dt == torch.bfloat16:
+        assert torch.equal(cat, ref_cat)
+    else:
+        torch.testing.assert_close(cat, ref_cat, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(mean, ref_mean, rtol=1e-3, atol=1e-5)
 
 
 @pytest.mark.gpu
 def test_assemble_z_kernel_is_deterministic():
+    """The SE mean is summed in a fixed order whichever block finishes
+    last: assemble_z and se_squeeze give the same bits call after call,
+    with one column tile and with several (f32 at 800 columns)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    args = _inputs(18, 2, 16, 32, 64, 16, 4, 0, "cuda", torch.bfloat16)
-    a = tdf.assemble_z(*args)
-    b = tdf.assemble_z(*args)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    for dtype, shape in ((torch.bfloat16, (16, 32, 64, 16, 4, 0)),
+                         (torch.float32, (4, 400, 32, 8, 4, 3))):
+        args = _inputs(18, 2, *shape, "cuda", dtype)
+        se, skip, _, _, bias, k_fm = args
+        a = tdf.assemble_z(*args)
+        for _ in range(3):
+            b = tdf.assemble_z(*args)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+            assert torch.equal(tdf.se_squeeze(se, skip, bias, k_fm), a[1])
+
+
+def _offset(t, k):
+    """A contiguous copy of ``t`` that starts ``k`` elements past the start
+    of its allocation (so off 16 bytes for k not a multiple of the vector)."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["disp", "fold", "odd_ccat"])
+def test_glue_kernels_unaligned_operands(case, dtype):
+    """Operands that do not start on 16 bytes take the narrow copies (one
+    channel a thread, thread copies of the skip rows, gate_z's ragged head
+    and tail); the tensors equal the aligned call's bit for bit, the SE
+    means within rtol 1e-3 (one channel a thread sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    args = _inputs(22, 2, *SHAPES[case], device="cuda", dtype=dt)
+    se, skip, xc, disp, bias, k_fm = args
+    cso = skip.shape[-1]
+    gates = torch.rand(2, cso, device="cuda").to(dt)
+    moved = [None if t is None else _offset(t, 1) for t in (se, skip, xc, disp)]
+    m_se, m_skip, m_xc, m_disp = moved
+    cat, mean = tdf.assemble_z(se, skip, xc, disp, bias, k_fm)
+    m_cat, m_mean = tdf.assemble_z(*moved, bias, k_fm)
+    assert torch.equal(m_cat, cat)
+    torch.testing.assert_close(m_mean, mean, rtol=1e-3, atol=1e-5)
+    assert torch.equal(tdf.se_squeeze(m_se, m_skip, bias, k_fm), m_mean)
+    assert torch.equal(
+        tdf.assemble(m_se, m_skip, gates, m_xc, m_disp, bias, k_fm),
+        tdf.assemble(se, skip, gates, xc, disp, bias, k_fm))
+    cat, _ = tdf.assemble_z(*args)
+    for k in range(1, 8):
+        shifted = _offset(cat, k)
+        assert torch.equal(tdf.gate_z(shifted, gates, cso),
+                           tdf.gate_z_plain(cat.clone(), gates, cso))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_gate_z_kernel_leaves_other_channels_unwritten(case, dtype):
+    """Channels >= Cso hold a sentinel (NaN and a finite value) before and
+    the same bits after: gate_z never stores there, not even the value it
+    read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dt = getattr(torch, dtype)
+    h2, w2, cso, cu, cd, _ = SHAPES[case]
+    cat = torch.randn(2, 2 * h2, 2 * w2, cso + cu + cd, device="cuda").to(dt)
+    cat[..., cso::2] = float("nan")
+    cat[..., cso + 1::2] = -7.5
+    rest = cat[..., cso:].clone()
+    gates = torch.rand(2, cso, device="cuda").to(dt)
+    want = cat[..., :cso] * gates[:, None, None, :]
+    tdf.gate_z(cat, gates, cso)
+    assert torch.equal(cat[..., :cso], want)
+    assert torch.equal(cat[..., cso:].view(torch.int16 if dt == torch.bfloat16
+                                           else torch.int32),
+                       rest.view(torch.int16 if dt == torch.bfloat16
+                                 else torch.int32))
 
 
 @pytest.mark.gpu
@@ -174,8 +256,9 @@ def test_warp_rows_forward_is_deterministic_and_rejects_bad_operands():
 @pytest.mark.parametrize("case", sorted(SHAPES))
 def test_decoder_glue_kernels_match_plain(case, dtype):
     """se_squeeze: its plain version within rtol 1e-3, and assemble_z's
-    mean bit for bit (the same row kernel); assemble: its plain version
-    within assemble_z's tolerance, and gate_z(assemble_z) bit for bit;
+    mean bit for bit (the same row kernel and tiles); assemble: its plain
+    version as assemble_z (bf16 bit for bit), and gate_z(assemble_z) bit
+    for bit;
     gate_z: its plain version bit for bit (one rounded product), channels
     >= Cso untouched."""
     if not torch.cuda.is_available():
@@ -199,10 +282,11 @@ def test_decoder_glue_kernels_match_plain(case, dtype):
     torch.testing.assert_close(mean, tdf.se_squeeze_plain(se, skip, bias, k_fm),
                                rtol=1e-3, atol=1e-5)
     assert torch.equal(mean, mean_z)
-    tol = dict(rtol=1e-5, atol=1e-5) if dt == torch.float32 else \
-        dict(rtol=2 ** -7, atol=1e-2)
     want = tdf.assemble_plain(se, skip, gates, xc, disp, bias, k_fm)
-    torch.testing.assert_close(cat.float(), want.float(), **tol)
+    if dt == torch.bfloat16:
+        assert torch.equal(cat, want)
+    else:
+        torch.testing.assert_close(cat, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(cat, gated)
     assert torch.equal(gated[..., cso:], untouched)
     ref = tdf.gate_z_plain(cat_z.clone(), gates, cso)

@@ -79,10 +79,14 @@ def test_conv_se_variant_matches_jax_serving():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
+BF16_VS_JAX = 2 ** -7   # max abs, bf16 serving vs JAX bf16 serving
+
+
 def test_bf16_close_to_jax_bf16(models):
-    """bf16 rounds at other places in the two frameworks (the JAX package
-    upsamples with an interpolation matmul in bf16); the sigmoid-bounded
-    outputs stay within a few bf16 steps."""
+    """bf16: both frameworks upsample with the same bf16 weights, but round
+    at other places (the fused glue rounds z once, the JAX package after
+    each step); the sigmoid-bounded outputs stay within two bf16 steps of
+    values in [0.5, 1) (read: one step, 2^-8)."""
     jmodel, variables, model = models
     x = images(45, batch=1)
     want = _jax_forward(jmodel, variables, x, 1.0, dtype=jnp.bfloat16)
@@ -91,7 +95,7 @@ def test_bf16_close_to_jax_bf16(models):
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
     assert np.isfinite(got).all()
-    assert np.abs(got - want).max() < 0.05
+    assert np.abs(got - want).max() <= BF16_VS_JAX
 
 
 # the JAX package's default encoder (s2d stages 0-1; the tiny config has
@@ -136,7 +140,7 @@ def test_bf16_s2d_close_to_jax_bf16(models, pipeline):
                                dec_pipeline=pipeline, **S2D)(
         torch.from_numpy(x)).float().numpy()
     assert np.isfinite(got).all()
-    assert np.abs(got - want).max() < 0.05
+    assert np.abs(got - want).max() <= BF16_VS_JAX
 
 
 COUNTED = (tdf.assemble_z, tdf.gate_z, tdf.se_squeeze, tdf.assemble,

@@ -42,13 +42,25 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                : "memory");
 }
 
-// wait until the phase of parity `parity` has completed; a wait that
-// never ends (a pipeline fault) traps, so the launch fails instead of
-// hanging the card
+// how long a barrier wait may take before it is taken for a pipeline
+// fault: far beyond any correct wait, time-slicing or a profiler's replay
+// included
+constexpr uint64_t kMbarTimeoutNs = 10ull * 1000 * 1000 * 1000;  // 10 s
+
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait until the phase of parity `parity` has completed; a wait that lasts
+// kMbarTimeoutNs of the card's clock (a pipeline fault) traps, so the launch
+// fails instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done;
-  for (uint32_t spins = 0;; ++spins) {
+  uint64_t start = 0;
+  for (;;) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -57,7 +69,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
-    if (spins == (1u << 22)) __trap();
+    const uint64_t now = globaltimer_ns();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > kMbarTimeoutNs) {
+      __trap();
+    }
   }
 }
 

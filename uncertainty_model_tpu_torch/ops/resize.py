@@ -4,6 +4,12 @@ tensors (the port's copy of the JAX package's ``ops/resize.py``).
 ``_lerp_coeffs`` is the contract: the same float32 arithmetic as torch's
 source-coordinate computation, bit for bit.  ``F.interpolate`` is not used,
 so the weights do not depend on how a torch build rounds them.
+
+float32 inputs take the exact fractions in torch's lerp form.  bfloat16
+inputs take the JAX package's bf16 form: the two taps weighted by
+``bf16(1 - frac)`` and ``bf16(frac)`` (the rows of its interpolation
+matrix rounded to bf16), products and sum in f32, one rounding to bf16
+per axis.
 """
 
 from __future__ import annotations
@@ -58,6 +64,29 @@ def lerp_taps(out_size: int, in_size: int
 
 
 @functools.lru_cache(maxsize=None)
+def bf16_weights(out_size: int, in_size: int
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(lo, hi, w_lo, w_hi) of the bf16 form: ``_lerp_coeffs``' taps with
+    ``w_lo = bf16(1 - frac)`` (``1 - frac`` in f32, as the JAX package's
+    ``_interp_matrix`` takes it) and ``w_hi = bf16(frac)``, as f32 arrays."""
+    lo, hi, frac = _lerp_coeffs(out_size, in_size)
+    w = torch.from_numpy(np.stack([np.float32(1) - frac, frac]))
+    w_lo, w_hi = w.to(torch.bfloat16).float().numpy()
+    return lo, hi, w_lo, w_hi
+
+
+@functools.lru_cache(maxsize=None)
+def _device_bf16_weights(out_size: int, in_size: int, device: torch.device
+                         ) -> tuple[torch.Tensor, ...]:
+    """:func:`bf16_weights` as tensors on ``device`` (indices long, weights
+    f32)."""
+    lo, hi, w_lo, w_hi = bf16_weights(out_size, in_size)
+    return (torch.from_numpy(lo).to(device, torch.long),
+            torch.from_numpy(hi).to(device, torch.long),
+            torch.from_numpy(w_lo).to(device), torch.from_numpy(w_hi).to(device))
+
+
+@functools.lru_cache(maxsize=None)
 def _device_coeffs(out_size: int, in_size: int, device: torch.device,
                    dtype: torch.dtype) -> tuple[torch.Tensor, ...]:
     """(lo, hi, frac) of ``_lerp_coeffs`` as tensors on ``device``."""
@@ -98,10 +127,34 @@ def _upsample2_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.stack([even, odd], dim=dim + 1).reshape(shape)
 
 
+def _two_tap_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
+    """The bf16 form along ``dim`` in f32: ``x[lo] w_lo + x[hi] w_hi``,
+    each product and the sum rounded to f32, not rounded further."""
+    lo, hi, w_lo, w_hi = _device_bf16_weights(out_size, x.shape[dim],
+                                              x.device)
+    x = x.float()
+    shape = _bshape(x, dim, out_size)
+    return (x.index_select(dim, lo) * w_lo.reshape(shape)
+            + x.index_select(dim, hi) * w_hi.reshape(shape))
+
+
+def resize_bf16_weights(x: torch.Tensor, size: tuple[int, int]
+                        ) -> torch.Tensor:
+    """f32 resize of NHWC ``x`` to ``size`` with the bf16 form's weights,
+    H first, then W, and no rounding below f32 (the fused decoder glue's
+    upsample in bf16, whose z is rounded once at its end)."""
+    for out_size, dim in zip(size, (x.ndim - 3, x.ndim - 2)):
+        if x.shape[dim] != out_size:
+            x = _two_tap_axis(x, out_size, dim)
+    return x.float()
+
+
 def _interp_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
     in_size = x.shape[dim]
     if in_size == out_size:
         return x
+    if x.dtype == torch.bfloat16:
+        return _two_tap_axis(x, out_size, dim).to(torch.bfloat16)
     if out_size == 2 * in_size and in_size >= 2:
         return _upsample2_axis(x, dim)
     lo, hi, frac = _device_coeffs(out_size, in_size, x.device, x.dtype)
@@ -114,7 +167,8 @@ def _interp_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Resize an NHWC tensor to ``size=(H, W)`` (align_corners=True); H is
-    interpolated first, then W, as in the JAX package."""
+    interpolated first, then W, as in the JAX package (bf16: in its bf16
+    form, rounded to bf16 after each axis)."""
     x = _interp_axis(x, size[0], x.ndim - 3)
     return _interp_axis(x, size[1], x.ndim - 2)
 
