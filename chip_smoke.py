@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it, in bf16 and f32 (``assemble_z``,
    ``gate_z``, ``se_squeeze``, ``assemble``, ``gated_conv_elu``;
-   ``warp_rows`` forward and backward); the decoder glue in bf16 bit for
+   ``warp_rows`` forward and backward, grouped as the training step and
+   the evaluation launch them); the decoder glue in bf16 bit for
    bit (``assemble_z``, ``gate_z``, ``assemble``), ``gate_z`` leaving
    channels >= Cso unwritten (they hold NaN before and after);
 3. run the serving paths: the 22.5M-parameter flagship model's bf16 serving
@@ -25,23 +26,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``se_squeeze`` + 3 ``assemble``.  Each also in f32 (TF32 off);
 3b. run the training path: ``Trainer.train_one_epoch`` of the flagship in
    f32 (TF32 off) at batch 8, 256x512, a few steps on one seeded stereo
-   batch, counters zeroed just before and read after (16 forward and 16
-   backward ``warp_rows`` launches a step); the loss must be finite and
+   batch, counters zeroed just before and read after (5 forward and 5
+   backward ``warp_rows`` launches a step: the 8 reconstruction warps in
+   one, the uncertainty term's pair at each scale in one); the loss must
+   be finite and
    fall.  Then one step at batch 2 on the card against the same step on
    the CPU (the plain versions) from the same weights: the losses, the
    whole step's gradients by their median, and each link of the
    gradient's chain per scale and per parameter;
 3c. run evaluation and checkpoints on the flagship in f32 (TF32 off) at
-   256x512: ``evaluate_model`` at batch 8 over 2 seeded batches (2
-   ``warp_rows`` forward launches a batch, counted); the card's
+   256x512: ``evaluate_model`` at batch 8 over 2 seeded batches (1
+   ``warp_rows`` forward launch a batch, counted); the card's
    ``eval_step`` at batch 2 against the CPU's with the same weights,
    inputs and noise; ``Trainer.train_model`` for 2 epochs of 2 batches with
    an evaluation and a checkpoint every epoch, then ``final`` loaded into a
    fresh trainer, which must hold the same parameters and Adam moments;
 4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
    and (a) with ``s2d_conv_backend="lax"``), the training step and the
-   eval step at batch 8, and each kernel against its plain version, its
-   bound and the PyTorch call that computes the same function (CUDA
+   eval step at batch 8 (each with the device's idle share), and each
+   kernel against its plain version, its bound and the PyTorch call that
+   computes the same function (``warp_rows`` per launch of a training
+   step's groups, and per one-problem call at each shape as a log; CUDA
    events, median of 9 with spread; ``conv_elu`` and ``upsample2x2``, which
    no path of the package runs, at the flagship's shapes named below;
    ``gated_conv_elu`` at each s2d stage with 1-4 inputs, so that the time
@@ -191,7 +196,8 @@ def build_kernels(sources):
         f"in {time.perf_counter() - t0:.1f} s")
     for name in sources:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 log(f"  {name}: {line.strip()}")
 
 
@@ -262,14 +268,38 @@ def check_assemble_z():
 
 
 def warp_shapes(batch):
-    """(rows, W, C) of each ``warp_rows`` call of a training step, with its
-    launches per step: at each of the 4 pyramid scales the reconstruction
+    """(rows, W, C) of each ``warp_rows`` problem of a training step, with
+    its count per step: at each of the 4 pyramid scales the reconstruction
     warps image + opposite disparity (C 4) and the uncertainty term warps
     the disparity (C 1), once per view."""
     from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
 
     h, w = FLAGSHIP_INPUT
     return [(batch * (h >> i), w >> i, c, 2) for c in (4, 1) for i in range(4)]
+
+
+def warp_groups(batch):
+    """The ``warp_rows`` launches of a training step, each way: (name,
+    [(rows, W), ...], C).  ``reconstruct_pyramid_with_lr`` warps all 8
+    reconstruction problems (4 scales x 2 views, C 4) in one launch; the
+    uncertainty term's ``consistency_loss`` warps its 2 views (C 1) in one
+    launch per scale."""
+    from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
+
+    h, w = FLAGSHIP_INPUT
+    scales = [(batch * (h >> i), w >> i) for i in range(4)]
+    return ([("recon", [p for p in scales for _ in range(2)], 4)]
+            + [(f"consistency{i}", [p] * 2, 1)
+               for i, p in enumerate(scales)])
+
+
+def eval_warp_group(batch):
+    """The evaluation's one ``warp_rows`` launch a batch: both views of the
+    full-scale images (C 3)."""
+    from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
+
+    h, w = FLAGSHIP_INPUT
+    return ("eval", [(batch * h, w)] * 2, 3)
 
 
 def warp_inputs(seed, rows, w, c):
@@ -286,35 +316,55 @@ def warp_inputs(seed, rows, w, c):
     return t(x), t(rng.normal(size=(rows, w, c))), t(rng.normal(size=(rows, w, c)))
 
 
+def group_inputs(seed, problems, c):
+    """``warp_inputs`` of each problem of a group: (xs, srcs, douts)."""
+    sets = [warp_inputs(seed + k, rows, w, c)
+            for k, (rows, w) in enumerate(problems)]
+    return tuple([s[i] for s in sets] for i in range(3))
+
+
 def check_warp_rows():
     """Each direction of ``warp_rows`` against its plain version at the
-    training path's shapes; returns the worst abs error of each."""
+    groups a training step launches (``warp_groups``) and at the
+    evaluation's (``eval_warp_group``), one launch each way a group;
+    returns the worst abs error of each."""
     from uncertainty_model_tpu_torch.ops.warp_rows import (
-        warp_rows_bwd, warp_rows_bwd_plain, warp_rows_fwd, warp_rows_plain)
+        warp_rows_bwd, warp_rows_bwd_many, warp_rows_bwd_plain,
+        warp_rows_fwd, warp_rows_fwd_many, warp_rows_plain)
 
     worst = {"fwd": 0.0, "bwd": 0.0}
-    for rows, w, c, _ in warp_shapes(TRAIN_BATCH):
-        x, src, dout = warp_inputs(SEED + rows + c, rows, w, c)
-        out = warp_rows_fwd(x, src)
-        dx, dsrc = warp_rows_bwd(x, src, dout)
+    for k, (name, problems, c) in enumerate(
+            warp_groups(TRAIN_BATCH) + [eval_warp_group(EVAL_BATCH)]):
+        xs, srcs, douts = group_inputs(SEED + 10 * k, problems, c)
+        before = (warp_rows_fwd.launches, warp_rows_bwd.launches)
+        outs = warp_rows_fwd_many(xs, srcs)
+        dxs, dsrcs = warp_rows_bwd_many(xs, srcs, douts)
         torch.cuda.synchronize()
-        ref = warp_rows_plain(x, src)
-        ref_dx, ref_dsrc = warp_rows_bwd_plain(x, src, dout)
-        _, dsrc_abs = warp_rows_bwd_plain(x, src, dout.abs())
-        err = (out - ref).abs().max().item()
-        err_dx = (dx - ref_dx).abs().max().item()
-        err_dsrc = (dsrc - ref_dsrc).abs()
-        ok = (within(out, ref, **F32_TOL) and within(dx, ref_dx, **F32_TOL)
-              and bool((err_dsrc <= DSRC_TOL * (1 + dsrc_abs)).all()))
-        err_dsrc = err_dsrc.max().item()
-        log(f"  warp_rows ({rows}, {w}, {c}): max|out err|={err:.3g} "
-            f"max|dx err|={err_dx:.3g} max|dsrc err|={err_dsrc:.3g} "
-            f"{'ok' if ok else 'DISAGREES'}")
-        if not ok:
-            fail(f"warp_rows kernels disagree with their plain versions at "
-                 f"({rows}, {w}, {c})")
-        worst["fwd"] = max(worst["fwd"], err)
-        worst["bwd"] = max(worst["bwd"], err_dx, err_dsrc)
+        if (warp_rows_fwd.launches - before[0],
+                warp_rows_bwd.launches - before[1]) != (1, 1):
+            fail(f"warp_rows group {name} took more than one launch")
+        for x, src, dout, out, dx, dsrc in zip(xs, srcs, douts, outs, dxs,
+                                               dsrcs):
+            ref = warp_rows_plain(x, src)
+            ref_dx, ref_dsrc = warp_rows_bwd_plain(x, src, dout)
+            _, dsrc_abs = warp_rows_bwd_plain(x, src, dout.abs())
+            err = (out - ref).abs().max().item()
+            err_dx = (dx - ref_dx).abs().max().item()
+            err_dsrc = (dsrc - ref_dsrc).abs()
+            ok = (within(out, ref, **F32_TOL)
+                  and within(dx, ref_dx, **F32_TOL)
+                  and bool((err_dsrc <= DSRC_TOL * (1 + dsrc_abs)).all()))
+            err_dsrc = err_dsrc.max().item()
+            rows, w = x.shape
+            log(f"  warp_rows group {name} ({rows}, {w}, {c}): max|out err|="
+                f"{err:.3g} max|dx err|={err_dx:.3g} max|dsrc err|="
+                f"{err_dsrc:.3g} {'ok' if ok else 'DISAGREES'}")
+            if not ok:
+                fail(f"warp_rows kernels disagree with their plain versions "
+                     f"in group {name} at ({rows}, {w}, {c})")
+            worst["fwd"] = max(worst["fwd"], err)
+            worst["bwd"] = max(worst["bwd"], err_dx, err_dsrc)
+        del xs, srcs, douts, outs, dxs, dsrcs
     log(f"tolerances: out and dx rtol {F32_TOL['rtol']} atol "
         f"{F32_TOL['atol']}; dsrc (shared-memory atomics, any order) "
         f"{DSRC_TOL} * (1 + sum of its terms' magnitudes)")
@@ -716,7 +766,7 @@ def run_training_path(counters):
         + ", ".join(f"{v:.6f}" for v in losses) + f"; launches {launches}")
     if len(seen) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"training losses {losses}")
-    per_step = sum(n for *_, n in warp_shapes(TRAIN_BATCH))
+    per_step = len(warp_groups(TRAIN_BATCH))
     for i, (counts, _) in enumerate(seen):
         for name, n in counts.items():
             if n != per_step * (i + 1):
@@ -871,7 +921,7 @@ def eval_batches(batch, seed, n=EVAL_BATCHES, device="cuda"):
 def run_evaluation(counters):
     """``evaluate_model`` of the flagship at batch ``EVAL_BATCH`` over
     ``EVAL_BATCHES`` seeded batches, the counters zeroed just before and
-    read just after (2 ``warp_rows`` forward launches a batch, nothing
+    read just after (1 ``warp_rows`` forward launch a batch, nothing
     else); the metrics must be finite.  Returns (model, loader, metrics,
     launches)."""
     from uncertainty_model_tpu_torch.train import evaluate_model
@@ -888,7 +938,7 @@ def run_evaluation(counters):
     log(f"evaluation: flagship f32 b{EVAL_BATCH} 256x512 x{EVAL_BATCHES}: "
         f"ssim (left, right) {metrics[0]}, (ause, aurg) {metrics[1]}; "
         f"launches {launches}")
-    want = {name: 2 * EVAL_BATCHES if name == "warp_rows_fwd" else 0
+    want = {name: EVAL_BATCHES if name == "warp_rows_fwd" else 0
             for name in counters}
     if launches != want:
         fail(f"evaluation launched {launches}, not {want}")
@@ -932,8 +982,8 @@ def check_eval_step_against_cpu():
 
 def run_train_model_with_checkpoints(counters, val_loader):
     """``Trainer.train_model`` for 2 epochs of 2 batches at batch
-    ``TRAIN_BATCH`` with an evaluation and a checkpoint every epoch (16 + 16
-    ``warp_rows`` launches a step, 2 forward a validation batch); then
+    ``TRAIN_BATCH`` with an evaluation and a checkpoint every epoch (5 + 5
+    ``warp_rows`` launches a step, 1 forward a validation batch); then
     ``final`` loaded into a fresh trainer must hold the same parameters,
     BatchNorm statistics and Adam moments (``torch.equal``)."""
     import os
@@ -944,7 +994,7 @@ def run_train_model_with_checkpoints(counters, val_loader):
     epochs, steps = 2, 2
     trainer = flagship_trainer(SEED + 25)
     loader = eval_batches(TRAIN_BATCH, SEED + 26, n=steps)
-    per_step = sum(n for *_, n in warp_shapes(TRAIN_BATCH))
+    per_step = len(warp_groups(TRAIN_BATCH))
     with tempfile.TemporaryDirectory() as tmp:
         for fn in counters.values():
             fn.launches = 0
@@ -957,7 +1007,7 @@ def run_train_model_with_checkpoints(counters, val_loader):
         launches = {name: fn.launches for name, fn in counters.items()}
         names = sorted(os.listdir(tmp))
         want = {"warp_rows_fwd": epochs * (steps * per_step
-                                           + 2 * len(val_loader)),
+                                           + len(val_loader)),
                 "warp_rows_bwd": epochs * steps * per_step}
         log(f"train_model: {epochs} epochs x {steps} batches, b{TRAIN_BATCH}, "
             f"{seconds:.1f} s: losses {losses}; validation {metrics}; "
@@ -1298,40 +1348,52 @@ def rotating(fn, sets):
     return lambda: fn(*next(it))
 
 
-def time_warp_rows():
-    """Each direction at each shape of a training step at batch
-    ``TRAIN_BATCH``: the kernel, the plain version, and ``F.grid_sample``
-    on (R, C, 1, W) (forward; ``grid_sampler_2d_backward`` for the
-    backward), which computes the same function.  Device time per call
-    (``time_graph_ms``); input sets rotate so that about 200 MB pass per
-    sample, more than the 50 MB L2 holds.  The eager time per call of the
-    kernel's wrapper (host cost included) is logged beside it."""
+def grid_sample_operands(x, src, dout):
+    """``F.grid_sample``'s operands for ``warp_rows(x, src)`` and the
+    cotangent ``dout``: input (R, C, 1, W), grid (R, 1, W, 2) and the
+    output's gradient (R, C, 1, W)."""
+    w = x.shape[1]
+    inp = src.permute(0, 2, 1).unsqueeze(2).contiguous()
+    gx = (2 * x + 1) / w - 1
+    grid = torch.stack([gx, torch.zeros_like(gx)], -1).unsqueeze(1)
+    gout = dout.permute(0, 2, 1).unsqueeze(2).contiguous()
+    return inp, grid, gout
+
+
+def grid_sample_fwd(inp, grid, gout):
     import torch.nn.functional as F
 
+    return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=False)
+
+
+def grid_sample_bwd(inp, grid, gout):
+    return torch.ops.aten.grid_sampler_2d_backward(
+        gout, inp, grid, 0, 0, False, [True, True])
+
+
+def time_warp_rows():
+    """Each direction at each shape of a training step at batch
+    ``TRAIN_BATCH``, one problem a call (the step launches them grouped,
+    ``time_warp_groups``; these rows are a log per shape): the kernel, the
+    plain version, and ``F.grid_sample`` on (R, C, 1, W) (forward;
+    ``grid_sampler_2d_backward`` for the backward), which computes the same
+    function.  Device time per call (``time_graph_ms``); input sets rotate
+    so that about 200 MB pass per sample, more than the 50 MB L2 holds.
+    The eager time per call of the kernel's wrapper (host cost included) is
+    logged beside it."""
     from uncertainty_model_tpu_torch.ops.warp_rows import (
         warp_rows_bwd, warp_rows_bwd_plain, warp_rows_fwd, warp_rows_plain)
 
-    def library_fwd(x, src, dout, inp, grid, gout):
-        return F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=False)
-
-    def library_bwd(x, src, dout, inp, grid, gout):
-        return torch.ops.aten.grid_sampler_2d_backward(
-            gout, inp, grid, 0, 0, False, [True, True])
-
     rows_out = []
-    for rows, w, c, per_step in warp_shapes(TRAIN_BATCH):
+    for rows, w, c, count in warp_shapes(TRAIN_BATCH):
         (fb, fo), (bb, bo) = warp_rows_work(rows, w, c)
         n_sets = max(2, min(16, -(-200_000_000 // bb)))
         sets = []
         for k in range(n_sets):
             x, src, dout = warp_inputs(SEED + 100 + k, rows, w, c)
-            inp = src.permute(0, 2, 1).unsqueeze(2).contiguous()
-            gx = (2 * x + 1) / w - 1
-            grid = torch.stack([gx, torch.zeros_like(gx)], -1).unsqueeze(1)
-            gout = dout.permute(0, 2, 1).unsqueeze(2).contiguous()
-            sets.append((x, src, dout, inp, grid, gout))
-        lib = library_fwd(*sets[0])[:, :, 0].permute(0, 2, 1)
+            sets.append((x, src, dout, *grid_sample_operands(x, src, dout)))
+        lib = grid_sample_fwd(*sets[0][3:])[:, :, 0].permute(0, 2, 1)
         lib_err = (lib - warp_rows_fwd(*sets[0][:2])).abs().max().item()
         if not lib_err <= WARP_LIBRARY_TOL:
             fail(f"grid_sample does not compute warp_rows at ({rows}, {w}, "
@@ -1340,10 +1402,10 @@ def time_warp_rows():
         calls = {
             "fwd": lambda x, s, *_: warp_rows_fwd(x, s),
             "fwd_plain": lambda x, s, *_: warp_rows_plain(x, s),
-            "fwd_library": library_fwd,
+            "fwd_library": lambda x, s, d, *lib: grid_sample_fwd(*lib),
             "bwd": lambda x, s, d, *_: warp_rows_bwd(x, s, d),
             "bwd_plain": lambda x, s, d, *_: warp_rows_bwd_plain(x, s, d),
-            "bwd_library": library_bwd,
+            "bwd_library": lambda x, s, d, *lib: grid_sample_bwd(*lib),
         }
         t = {k: time_graph_ms(rotating(fn, sets), reps)
              for k, fn in calls.items()}
@@ -1351,14 +1413,15 @@ def time_warp_rows():
                  for k in ("fwd", "bwd")}
         fwd_bound, fwd_by = bound(fb, fo)
         bwd_bound, bwd_by = bound(bb, bo)
-        row = {"rows": rows, "w": w, "c": c, "launches_per_step": per_step,
+        row = {"rows": rows, "w": w, "c": c, "problems_per_step": count,
                "library_max_abs_vs_kernel": lib_err,
                "fwd_bytes": fb, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
                "bwd_bytes": bb, "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
                **{f"{k}_ms": v[0] for k, v in t.items()},
                **{f"{k}_ms_spread": v[1] for k, v in t.items()},
                **{f"{k}_eager_ms": v for k, v in eager.items()}}
-        log(f"  warp_rows ({rows}, {w}, {c}) x{per_step}/step: fwd kernel "
+        log(f"  warp_rows ({rows}, {w}, {c}) x{count}/step, one problem a "
+            f"call: fwd kernel "
             f"{t['fwd'][0] * 1e3:.1f} us (spread {t['fwd'][1] * 1e3:.1f}), "
             f"plain {t['fwd_plain'][0] * 1e3:.1f}, grid_sample "
             f"{t['fwd_library'][0] * 1e3:.1f}, bound {fwd_bound * 1e3:.1f} us "
@@ -1371,6 +1434,80 @@ def time_warp_rows():
         rows_out.append(row)
         del sets
         torch.cuda.empty_cache()
+    return rows_out
+
+
+def time_warp_groups():
+    """Each direction of ``warp_rows`` at each group a training step at
+    batch ``TRAIN_BATCH`` launches (``warp_groups``, one launch a group
+    each way): the grouped kernel, the plain version problem by problem,
+    and ``F.grid_sample`` (its backward op for the backward) on each
+    problem, summed over the group.  Device time per group
+    (``time_graph_ms``), input sets rotating so that about 200 MB pass per
+    sample; the eager time per call of the grouped wrapper (host cost
+    included) is logged beside it."""
+    from uncertainty_model_tpu_torch.ops.warp_rows import (
+        warp_rows_bwd_many, warp_rows_bwd_plain, warp_rows_fwd_many,
+        warp_rows_plain)
+
+    def each(fn):
+        return lambda xs, srcs, douts, libs: [
+            fn(*p) for p in zip(xs, srcs, douts)]
+
+    calls = {
+        "fwd": lambda xs, srcs, *_: warp_rows_fwd_many(xs, srcs),
+        "fwd_plain": each(lambda x, s, d: warp_rows_plain(x, s)),
+        "fwd_library": lambda *a: [grid_sample_fwd(*lib) for lib in a[3]],
+        "bwd": lambda xs, srcs, douts, _: warp_rows_bwd_many(xs, srcs, douts),
+        "bwd_plain": each(warp_rows_bwd_plain),
+        "bwd_library": lambda *a: [grid_sample_bwd(*lib) for lib in a[3]],
+    }
+    rows_out = []
+    for name, problems, c in warp_groups(TRAIN_BATCH):
+        work = [warp_rows_work(rows, w, c) for rows, w in problems]
+        fb, fo = (sum(f[i] for f, _ in work) for i in range(2))
+        bb, bo = (sum(b[i] for _, b in work) for i in range(2))
+        n_sets = max(2, min(16, -(-200_000_000 // bb)))
+        sets = []
+        for k in range(n_sets):
+            xs, srcs, douts = group_inputs(SEED + 100 + 10 * k, problems, c)
+            libs = [grid_sample_operands(*p) for p in zip(xs, srcs, douts)]
+            sets.append((xs, srcs, douts, libs))
+        reps = max(n_sets, 16)
+        t = {k: time_graph_ms(rotating(fn, sets), reps)
+             for k, fn in calls.items()}
+        eager = {k: time_ms(rotating(calls[k], sets), reps)[0]
+                 for k in ("fwd", "bwd")}
+        fwd_bound, fwd_by = bound(fb, fo)
+        bwd_bound, bwd_by = bound(bb, bo)
+        row = {"group": name, "problems": problems, "c": c,
+               "launches_per_step": 1,
+               "fwd_bytes": fb, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+               "bwd_bytes": bb, "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
+               **{f"{k}_ms": v[0] for k, v in t.items()},
+               **{f"{k}_ms_spread": v[1] for k, v in t.items()},
+               **{f"{k}_eager_ms": v for k, v in eager.items()}}
+        log(f"  warp_rows group {name} ({len(problems)} problems, C {c}): "
+            f"fwd kernel {t['fwd'][0] * 1e3:.1f} us (spread "
+            f"{t['fwd'][1] * 1e3:.1f}), plain {t['fwd_plain'][0] * 1e3:.1f}, "
+            f"grid_sample {t['fwd_library'][0] * 1e3:.1f}, bound "
+            f"{fwd_bound * 1e3:.1f} us ({fb / 1e6:.1f} MB, "
+            f"{fb / t['fwd'][0] / 1e9:.2f} TB/s); bwd kernel "
+            f"{t['bwd'][0] * 1e3:.1f} us (spread {t['bwd'][1] * 1e3:.1f}), "
+            f"plain {t['bwd_plain'][0] * 1e3:.1f}, grid_sample backward "
+            f"{t['bwd_library'][0] * 1e3:.1f}, bound {bwd_bound * 1e3:.1f} us "
+            f"({bb / 1e6:.1f} MB, {bb / t['bwd'][0] / 1e9:.2f} TB/s); eager "
+            f"calls (host included) fwd {eager['fwd'] * 1e3:.1f}, bwd "
+            f"{eager['bwd'] * 1e3:.1f} us")
+        rows_out.append(row)
+        del sets
+        torch.cuda.empty_cache()
+    for d in ("fwd", "bwd"):
+        log(f"  warp_rows {d} per step ({len(rows_out)} launches): kernel "
+            f"{per_step(rows_out, f'{d}_ms') * 1e3:.1f} us, bound "
+            f"{per_step(rows_out, f'{d}_bound_ms') * 1e3:.1f}, plain "
+            f"{per_step(rows_out, f'{d}_plain_ms') * 1e3:.1f}, grid_sample "
+            f"{per_step(rows_out, f'{d}_library_ms') * 1e3:.1f}")
     return rows_out
 
 
@@ -1563,8 +1700,8 @@ def glue_build_report():
 
 def time_eval_step(model, loader):
     """CUDA-event time of one ``eval_step`` at batch ``EVAL_BATCH`` (median
-    and spread of 9, after 2 warm-up calls) and its device time by
-    operator."""
+    and spread of 9, after 2 warm-up calls), the device's idle share over 3
+    steps (``device_idle``) and its device time by operator."""
     from uncertainty_model_tpu_torch.train import eval_step
 
     batch = loader[0]
@@ -1578,9 +1715,11 @@ def time_eval_step(model, loader):
     ms, spread = time_ms(step, reps=1)
     log(f"  eval step f32 b{EVAL_BATCH} 256x512: {ms:.2f} ms (spread "
         f"{spread:.2f} ms over 9), {EVAL_BATCH / ms * 1e3:.1f} images/s")
+    idle = device_idle(step)
     breakdown = profile_device_time(step, f"eval step b{EVAL_BATCH}", top=15)
     return {"batch": EVAL_BATCH, "ms": ms, "ms_spread": spread,
-            "images_per_s": EVAL_BATCH / ms * 1e3, "breakdown": breakdown}
+            "images_per_s": EVAL_BATCH / ms * 1e3, "device_trace": idle,
+            "breakdown": breakdown}
 
 
 def time_conv_elu():
@@ -1787,7 +1926,8 @@ def main() -> int:
     del x, s2d_forwards
     torch.cuda.empty_cache()
     step = time_train_step(trainer, batch, disp_scale)
-    warps = time_warp_rows()
+    warps = time_warp_groups()
+    warp_shapes_log = time_warp_rows()
     step_breakdown = profile_device_time(
         lambda: trainer.train_step(batch, disp_scale, TRAIN_LR),
         f"train step b{TRAIN_BATCH}", top=30)
@@ -1809,7 +1949,8 @@ def main() -> int:
                                "(no launch of its own)",
                     "breakdown": breakdown, "breakdown_s2d": breakdown_s2d,
                     "train_step": step,
-                    "train_vs_cpu": cpu_check, "warp_rows_shapes": warps,
+                    "train_vs_cpu": cpu_check, "warp_rows_groups": warps,
+                    "warp_rows_shapes": warp_shapes_log,
                     "train_breakdown": step_breakdown,
                     "evaluation": {"metrics": eval_metrics,
                                    "launches": eval_launches},
@@ -1823,9 +1964,9 @@ def main() -> int:
     kernels = [summed(stages, "assemble_z", csrc + "assemble_z.cu",
                       pallas + "decoder_fused.py:250", launches["assemble_z"],
                       worst, library=False)]
-    # warp_rows: launches counts the whole epoch's; the times cover the
-    # launches of one training step; the library call is grid_sample (its
-    # backward op for the backward)
+    # warp_rows: launches counts the whole epoch's; the times cover the 5
+    # grouped launches of one training step; the library call is
+    # grid_sample (its backward op for the backward) on each problem
     for name, d, line in (("warp_rows_fwd", "fwd", 115),
                           ("warp_rows_bwd", "bwd", 140)):
         kernels.append({

@@ -247,6 +247,69 @@ def test_warp_rows_forward_is_deterministic_and_rejects_bad_operands():
         twr.warp_rows_fwd(x, src.double())
 
 
+# groups of (R, W) problems that share C: the 8 problems of a training
+# step's reconstruction warps at batch 2 (4 scales x 2 views, C 4) and the
+# uncertainty term's pair at the full scale (C 1); a W = 1 and a one-row
+# problem; a group with an empty problem; 9 problems (two launches)
+WARP_GROUPS = {
+    "step_b2": ([(2 * (256 >> i), 512 >> i) for i in range(4)
+                 for _ in range(2)], 4),
+    "step_c1": ([(512, 512)] * 2, 1),
+    "w1_one_row": ([(6, 1), (1, 64), (16, 64)], 4),
+    "w1_one_row_c3": ([(6, 1), (1, 512), (5, 64)], 3),
+    "empty": ([(4, 64), (0, 64), (3, 32)], 4),
+    "nine": ([(2, 16 * (i + 1)) for i in range(9)], 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WARP_GROUPS))
+def test_warp_rows_grouped_kernels_match_plain(case):
+    """``warp_rows_many``: one launch each way for up to 8 problems, and
+    each problem's out, dx and dsrc within the tolerances of
+    ``test_warp_rows_kernels_match_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    problems, c = WARP_GROUPS[case]
+    inputs = [_warp_inputs(30 + i, r, w, c, "mixed")
+              for i, (r, w) in enumerate(problems)]
+    before = (twr.warp_rows_fwd.launches, twr.warp_rows_bwd.launches)
+    xg = [x.clone().requires_grad_() for x, _, _ in inputs]
+    sg = [s.clone().requires_grad_() for _, s, _ in inputs]
+    outs = twr.warp_rows_many(xg, sg)
+    torch.autograd.backward(outs, [d for *_, d in inputs])
+    torch.cuda.synchronize()
+    launches = -(-sum(1 for r, w in problems if r * w) // 8)
+    assert (twr.warp_rows_fwd.launches, twr.warp_rows_bwd.launches) == (
+        before[0] + launches, before[1] + launches)
+    for (x, src, dout), out, xi, si in zip(inputs, outs, xg, sg):
+        torch.testing.assert_close(out.detach(), twr.warp_rows_plain(x, src),
+                                   rtol=1e-5, atol=1e-5)
+        dx, dsrc = twr.warp_rows_bwd_plain(x, src, dout)
+        _, dsrc_abs = twr.warp_rows_bwd_plain(x, src, dout.abs())
+        torch.testing.assert_close(xi.grad, dx, rtol=1e-5, atol=1e-5)
+        assert bool(((si.grad - dsrc).abs() <= 1e-5 * (1 + dsrc_abs)).all())
+
+
+@pytest.mark.gpu
+def test_warp_rows_grouped_rejects_mixed_operands():
+    """Operands on two devices, of another dtype or of two C raise, and
+    nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, src, _ = _warp_inputs(25, 8, 64, 4, "mixed")
+    before = (twr.warp_rows_fwd.launches, twr.warp_rows_bwd.launches)
+    with pytest.raises(ValueError, match="device"):
+        twr.warp_rows_fwd_many([x, x.cpu()], [src, src.cpu()])
+    with pytest.raises(TypeError):
+        twr.warp_rows_fwd_many([x, x], [src, src.double()])
+    with pytest.raises(ValueError, match="one C"):
+        twr.warp_rows_fwd_many([x, x], [src, src[..., :3].contiguous()])
+    with pytest.raises(ValueError, match="device"):
+        twr.warp_rows_bwd_many([x, x], [src, src], [src, src.cpu()])
+    assert (twr.warp_rows_fwd.launches, twr.warp_rows_bwd.launches) == before
+
+
 # ---------------------------------------------------------------------------
 # gate_z, se_squeeze, assemble
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import reconstruct_left_image, reconstruct_right_image
+from ..ops import warp_by_disparities
 
 
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -21,8 +21,11 @@ def consistency_loss(warp_field: torch.Tensor,
     The port's one caller is the uncertainty-consistency term, which passes
     (uncertainty, disparity): the reference's warp-field quirk
     (train/loss.py:430-431).  The disparity's own LR-consistency comes from
-    the fused reconstruction warps (``reconstruct_pyramid_with_lr``)."""
+    the fused reconstruction warps (``reconstruct_pyramid_with_lr``).  Both
+    views' warps are one ``warp_rows`` launch each way on CUDA: the left
+    view from the right source (``reconstruct_left_image``), the right from
+    the left."""
     left, right = warp_field[..., 0:1], warp_field[..., 1:2]
-    left_lr = reconstruct_left_image(left, source[..., 1:2])
-    right_lr = reconstruct_right_image(right, source[..., 0:1])
+    left_lr, right_lr = warp_by_disparities(
+        [-left, right], [source[..., 1:2], source[..., 0:1]])
     return l1_loss(left, left_lr) + l1_loss(right, right_lr)

@@ -6,10 +6,11 @@ from .resize import resize_bilinear, scale_pyramid
 from .shuffle import pixel_shuffle, shuffle_phase_major
 from .warp import (reconstruct_left_image, reconstruct_pyramid_with_lr,
                    reconstruct_right_image, reconstruct_stereo_with_lr,
-                   warp_by_disparity)
+                   warp_by_disparities, warp_by_disparity)
 
 __all__ = ["pad2d", "reflect_pad2d", "avg_pool2d", "global_avg_pool",
            "resize_bilinear", "scale_pyramid", "pixel_shuffle",
            "shuffle_phase_major", "reconstruct_left_image",
            "reconstruct_pyramid_with_lr", "reconstruct_right_image",
-           "reconstruct_stereo_with_lr", "warp_by_disparity"]
+           "reconstruct_stereo_with_lr", "warp_by_disparities",
+           "warp_by_disparity"]

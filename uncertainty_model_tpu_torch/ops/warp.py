@@ -12,7 +12,8 @@ pixel ``(i, j)`` is::
 ``y_src`` depends only on the row, so the 2-D sample separates exactly: a
 vertical lerp with static per-row weights (plain PyTorch here) and a
 horizontal 2-tap lerp at disparity-dependent columns, :func:`warp_rows`
-(a hand-written kernel on CUDA tensors).  Each tap outside the image
+(a hand-written kernel on CUDA tensors); :func:`warp_by_disparities` warps
+several sources in one launch of it.  Each tap outside the image
 contributes zero, which dims the border rows and columns by half, as
 grid_sample does.  Everything is differentiable in the disparity.
 """
@@ -24,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from .warp_rows import warp_rows
+from .warp_rows import warp_rows_many
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,11 +61,10 @@ def _x_base(width: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(j / np.float32(width - 1)).to(device)
 
 
-def warp_by_disparity(disparity: torch.Tensor,
-                      source: torch.Tensor) -> torch.Tensor:
-    """Sample ``source`` (B, H, W, C) at x shifted by ``disparity``
-    ((B, H, W) or (B, H, W, 1), in image widths; positive samples to the
-    right): grid_sample(zeros, align_corners=False) of the reference."""
+def _warp_operands(disparity: torch.Tensor, source: torch.Tensor):
+    """``warp_rows``'s operands for :func:`warp_by_disparity`: the sampling
+    columns ``x`` (B*H, W) in pixels and the vertically lerped source
+    (B*H, W, C)."""
     if disparity.ndim == 4:
         disparity = disparity[..., 0]
     b, h, w, c = source.shape
@@ -72,9 +72,26 @@ def warp_by_disparity(disparity: torch.Tensor,
     src_v = source.index_select(1, lo) * w_lo + source.index_select(1, hi) * w_hi
 
     x_src = (_x_base(w, source.device) + disparity.float()) * w - 0.5
-    out = warp_rows(x_src.reshape(b * h, w).contiguous(),
-                    src_v.reshape(b * h, w, c).contiguous())
-    return out.reshape(b, h, w, c)
+    return (x_src.reshape(b * h, w).contiguous(),
+            src_v.reshape(b * h, w, c).contiguous())
+
+
+def warp_by_disparities(disparities, sources) -> list:
+    """:func:`warp_by_disparity` of each pair ``(disparities[i],
+    sources[i])``, with one ``warp_rows`` launch each way for all of them
+    on CUDA (the sources share C)."""
+    operands = [_warp_operands(d, s) for d, s in zip(disparities, sources)]
+    warped = warp_rows_many([x for x, _ in operands],
+                            [s for _, s in operands])
+    return [out.reshape(s.shape) for out, s in zip(warped, sources)]
+
+
+def warp_by_disparity(disparity: torch.Tensor,
+                      source: torch.Tensor) -> torch.Tensor:
+    """Sample ``source`` (B, H, W, C) at x shifted by ``disparity``
+    ((B, H, W) or (B, H, W, 1), in image widths; positive samples to the
+    right): grid_sample(zeros, align_corners=False) of the reference."""
+    return warp_by_disparities([disparity], [source])[0]
 
 
 def reconstruct_left_image(left_disparity: torch.Tensor,
@@ -100,18 +117,25 @@ def reconstruct_stereo_with_lr(disparity: torch.Tensor, images: torch.Tensor):
 
     Returns ``(recon (..., 6), lr (..., 2))``; ``lr[..., 0]`` is the left
     disparity reconstructed from the right, and vice versa."""
-    left_src = torch.cat([images[..., 3:6], disparity[..., 1:2]], dim=-1)
-    right_src = torch.cat([images[..., 0:3], disparity[..., 0:1]], dim=-1)
-    left = reconstruct_left_image(disparity[..., 0], left_src)
-    right = reconstruct_right_image(disparity[..., 1], right_src)
-    recon = torch.cat([left[..., :3], right[..., :3]], dim=-1)
-    lr = torch.cat([left[..., 3:4], right[..., 3:4]], dim=-1)
-    return recon, lr
+    recon, lr = reconstruct_pyramid_with_lr([disparity], [images])
+    return recon[0], lr[0]
 
 
 def reconstruct_pyramid_with_lr(disparities, pyramid):
-    """:func:`reconstruct_stereo_with_lr` at every scale; returns
+    """:func:`reconstruct_stereo_with_lr` at every scale, all the scales'
+    warps in one ``warp_rows`` launch each way on CUDA; returns
     ``(recon_pyramid, lr_pyramid)``."""
-    pairs = [reconstruct_stereo_with_lr(d, im)
-             for d, im in zip(disparities, pyramid)]
-    return [p[0] for p in pairs], [p[1] for p in pairs]
+    shifts, sources = [], []
+    for d, im in zip(disparities, pyramid):
+        # the left view from the right image (reconstruct_left_image), the
+        # right view from the left
+        shifts += [-d[..., 0], d[..., 1]]
+        sources += [torch.cat([im[..., 3:6], d[..., 1:2]], dim=-1),
+                    torch.cat([im[..., 0:3], d[..., 0:1]], dim=-1)]
+    warped = warp_by_disparities(shifts, sources)
+    lefts, rights = warped[0::2], warped[1::2]
+    recon = [torch.cat([a[..., :3], b[..., :3]], dim=-1)
+             for a, b in zip(lefts, rights)]
+    lr = [torch.cat([a[..., 3:4], b[..., 3:4]], dim=-1)
+          for a, b in zip(lefts, rights)]
+    return recon, lr

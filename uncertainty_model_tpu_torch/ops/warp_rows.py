@@ -3,17 +3,21 @@
 
 ``warp_rows(x, src)`` samples each row of ``src`` (R, W, C) at the pixel
 coordinates ``x`` (R, W) with a 2-tap lerp, zero outside [0, W) (grid_sample
-zeros padding).  It is a ``torch.autograd.Function``: on CUDA tensors the
-forward launches ``csrc/warp_rows.cu``'s forward kernel and the backward its
-backward kernel, each counted in ``warp_rows_fwd.launches`` and
-``warp_rows_bwd.launches``; on CPU tensors both run the plain versions
-:func:`warp_rows_plain` (the gather form) and :func:`warp_rows_bwd_plain`
-(its derivative written out), which the tests hold against the JAX package
-and ``chip_smoke.py`` holds the kernels against on the card.
+zeros padding).  ``warp_rows_many(xs, srcs)`` does so for a group of such
+problems that share C, as one ``torch.autograd.Function``: on CUDA tensors
+the forward is one launch of ``csrc/warp_rows.cu``'s forward kernel for up
+to 8 problems and the backward one launch of its backward kernel, counted
+in ``warp_rows_fwd.launches`` and ``warp_rows_bwd.launches``;
+``warp_rows`` is a group of one.  On CPU tensors both directions run the
+plain versions problem by problem, :func:`warp_rows_plain` (the gather
+form) and :func:`warp_rows_bwd_plain` (its derivative written out), which
+the tests hold against the JAX package and ``chip_smoke.py`` holds the
+kernels against on the card.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
@@ -24,6 +28,8 @@ from .. import _build
 # the backward kernel holds a row's dsrc (W * C f32) in one block's shared
 # memory
 _MAX_SHARED_BYTES = 232_448
+# problems a launch takes (csrc/warp_rows.cu, kMaxProblems)
+_MAX_PROBLEMS = 8
 
 
 def _gather_taps(x: torch.Tensor, width: int):
@@ -80,102 +86,151 @@ def _check(x: torch.Tensor, src: torch.Tensor, dout=None) -> None:
                          f"{tuple(src.shape)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("warp_rows")
-    lib.umt_warp_rows_fwd.argtypes = ([ctypes.c_void_p] * 3
-                                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.umt_warp_rows_bwd.argtypes = ([ctypes.c_void_p] * 5
-                                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.umt_warp_rows_fwd.restype = ctypes.c_int
-    lib.umt_warp_rows_bwd.restype = ctypes.c_int
-    return lib
-
-
-def _cuda_operands(*tensors: torch.Tensor) -> None:
+def _check_group(xs, srcs, douts=None) -> bool:
+    """Check a group's shapes (each problem as :func:`_check`, one C for
+    all), devices, dtypes and layouts; True where every operand lies on the
+    CPU (the plain versions), False where the kernels take them (f32,
+    contiguous, one CUDA device)."""
+    if not srcs or len(xs) != len(srcs) or (
+            douts is not None and len(douts) != len(srcs)):
+        raise ValueError(f"a warp_rows group takes as many x as src (and "
+                         f"dout), at least one: {len(xs)} and {len(srcs)}")
+    for i, (x, src) in enumerate(zip(xs, srcs)):
+        _check(x, src, None if douts is None else douts[i])
+    if len({src.shape[2] for src in srcs}) != 1:
+        raise ValueError(f"a warp_rows group shares one C, not "
+                         f"{sorted({src.shape[2] for src in srcs})}")
+    tensors = [*xs, *srcs, *(douts or ())]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("warp_rows operands must share one device")
     dev = tensors[0].device
+    if dev.type == "cpu":
+        return True
     if dev.type != "cuda":
         raise RuntimeError(f"warp_rows has no kernel for {dev}")
     for t in tensors:
-        if t.device != dev:
-            raise ValueError("warp_rows operands must share one device")
         if t.dtype != torch.float32:
             raise TypeError(f"warp_rows kernels take float32, not {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("warp_rows kernels take contiguous tensors")
+    return False
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("warp_rows")
+    for fn in (lib.umt_warp_rows_fwd, lib.umt_warp_rows_bwd):
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(direction: str, problems, c: int) -> None:
+    """Launch the ``direction`` kernel ("fwd" or "bwd") on ``problems``,
+    tuples ``(x, src, dout, out, dx)`` (None where a direction does not use
+    one), ``_MAX_PROBLEMS`` a launch; empty problems are left out.  Each
+    launch adds one to the direction's counter."""
+    problems = [p for p in problems if p[1].numel()]
+    if not problems:
+        return
+    dev = problems[0][0].device
+    fn, counted = ((_library().umt_warp_rows_fwd, warp_rows_fwd)
+                   if direction == "fwd" else
+                   (_library().umt_warp_rows_bwd, warp_rows_bwd))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for i in range(0, len(problems), _MAX_PROBLEMS):
+        chunk = problems[i:i + _MAX_PROBLEMS]
+        entries = []
+        for x, *rest in chunk:
+            entries += [0 if t is None else t.data_ptr() for t in (x, *rest)]
+            entries += x.shape
+        table = array.array("q", entries)  # int64, alive through the call
+        with torch.cuda.device(dev):
+            err = fn(len(chunk), table.buffer_info()[0], c, stream)
+        if err != 0:
+            raise RuntimeError(f"warp_rows {direction} launch failed: CUDA "
+                               f"error {err}")
+        counted.launches += 1
+
+
+def warp_rows_fwd_many(xs, srcs) -> list:
+    """The forward of :func:`warp_rows_many` without autograd: the plain
+    version problem by problem on CPU tensors, one kernel launch for the
+    group on CUDA tensors (or raise)."""
+    if _check_group(xs, srcs):
+        return [warp_rows_plain(x, src) for x, src in zip(xs, srcs)]
+    outs = [torch.empty_like(src) for src in srcs]
+    _launch("fwd", [(x, src, None, out, None)
+                    for x, src, out in zip(xs, srcs, outs)],
+            srcs[0].shape[2])
+    return outs
+
+
+def warp_rows_bwd_many(xs, srcs, douts):
+    """``(dxs, dsrcs)`` of :func:`warp_rows_many` for the cotangents
+    ``douts``: the plain version problem by problem on CPU tensors, one
+    kernel launch for the group on CUDA tensors (or raise)."""
+    if _check_group(xs, srcs, douts):
+        grads = [warp_rows_bwd_plain(*p) for p in zip(xs, srcs, douts)]
+        return [g[0] for g in grads], [g[1] for g in grads]
+    c = srcs[0].shape[2]
+    for src in srcs:
+        if 4 * src.shape[1] * c > _MAX_SHARED_BYTES:
+            raise ValueError(f"warp_rows backward holds a row of W*C = "
+                             f"{src.shape[1] * c} f32 in shared memory; at "
+                             f"most {_MAX_SHARED_BYTES // 4}")
+    dxs = [torch.empty_like(x) for x in xs]
+    dsrcs = [torch.empty_like(src) for src in srcs]
+    _launch("bwd", list(zip(xs, srcs, douts, dsrcs, dxs)), c)
+    return dxs, dsrcs
 
 
 def warp_rows_fwd(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """The forward of :func:`warp_rows` without autograd: the plain version
-    on CPU tensors, the forward kernel on CUDA tensors (or raise)."""
-    _check(x, src)
-    if x.device.type == "cpu" and src.device.type == "cpu":
-        return warp_rows_plain(x, src)
-    _cuda_operands(x, src)
-    out = torch.empty_like(src)
-    r, w, c = src.shape
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(src.device):
-        err = _library().umt_warp_rows_fwd(
-            x.data_ptr(), src.data_ptr(), out.data_ptr(), r, w, c,
-            _stream(src.device))
-    if err != 0:
-        raise RuntimeError(f"warp_rows forward launch failed: CUDA error {err}")
-    warp_rows_fwd.launches += 1
-    return out
+    """The forward of :func:`warp_rows` without autograd (a group of one);
+    ``warp_rows_fwd.launches`` counts the forward kernel's launches."""
+    return warp_rows_fwd_many([x], [src])[0]
 
 
 def warp_rows_bwd(x: torch.Tensor, src: torch.Tensor, dout: torch.Tensor):
-    """``(dx, dsrc)`` of :func:`warp_rows`: the plain version on CPU
-    tensors, the backward kernel on CUDA tensors (or raise)."""
-    _check(x, src, dout)
-    if all(t.device.type == "cpu" for t in (x, src, dout)):
-        return warp_rows_bwd_plain(x, src, dout)
-    _cuda_operands(x, src, dout)
-    r, w, c = src.shape
-    if 4 * w * c > _MAX_SHARED_BYTES:
-        raise ValueError(f"warp_rows backward holds a row of W*C = {w * c} "
-                         f"f32 in shared memory; at most "
-                         f"{_MAX_SHARED_BYTES // 4}")
-    dsrc = torch.empty_like(src)
-    dx = torch.empty_like(x)
-    if dsrc.numel() == 0:
-        return dx, dsrc
-    with torch.cuda.device(src.device):
-        err = _library().umt_warp_rows_bwd(
-            x.data_ptr(), src.data_ptr(), dout.data_ptr(), dsrc.data_ptr(),
-            dx.data_ptr(), r, w, c, _stream(src.device))
-    if err != 0:
-        raise RuntimeError(f"warp_rows backward launch failed: CUDA error "
-                           f"{err}")
-    warp_rows_bwd.launches += 1
-    return dx, dsrc
+    """``(dx, dsrc)`` of :func:`warp_rows` (a group of one);
+    ``warp_rows_bwd.launches`` counts the backward kernel's launches."""
+    dxs, dsrcs = warp_rows_bwd_many([x], [src], [dout])
+    return dxs[0], dsrcs[0]
 
 
 warp_rows_fwd.launches = 0
 warp_rows_bwd.launches = 0
 
 
-class _WarpRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, src):
-        ctx.save_for_backward(x, src)
-        return warp_rows_fwd(x, src)
+class _WarpRowsMany(torch.autograd.Function):
+    """The group's operands flattened: ``(n, x_1..x_n, src_1..src_n)``.
+    An output that received no gradient gets zeros (materialised grads),
+    so the backward is one launch for the whole group."""
 
     @staticmethod
-    def backward(ctx, dout):
-        x, src = ctx.saved_tensors
-        dx, dsrc = warp_rows_bwd(x, src, dout.contiguous())
-        return dx, dsrc
+    def forward(ctx, n, *operands):
+        ctx.save_for_backward(*operands)
+        return tuple(warp_rows_fwd_many(operands[:n], operands[n:]))
+
+    @staticmethod
+    def backward(ctx, *douts):
+        operands = ctx.saved_tensors
+        n = len(douts)
+        dxs, dsrcs = warp_rows_bwd_many(operands[:n], operands[n:],
+                                        [d.contiguous() for d in douts])
+        return (None, *dxs, *dsrcs)
+
+
+def warp_rows_many(xs, srcs) -> list:
+    """:func:`warp_rows` of each pair ``(xs[i], srcs[i])``, differentiable
+    in all of them; on CUDA one launch each way for the group (every src
+    has the same C)."""
+    return list(_WarpRowsMany.apply(len(xs), *xs, *srcs))
 
 
 def warp_rows(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """Sample each row of ``src`` (R, W, C) at the pixel coordinates ``x``
     (R, W): ``out[r, j] = sum_k max(0, 1 - |x[r, j] - k|) * src[r, k]``,
     differentiable in both.  ``dx`` is in pixel units."""
-    return _WarpRows.apply(x, src)
+    return warp_rows_many([x], [src])[0]

@@ -2,7 +2,7 @@
 reference train/evaluate.py).
 
 Per batch: the full-resolution eval-mode forward, the stereo
-reconstructions by warp (two ``warp_rows`` launches on CUDA), gaussian SSIM
+reconstructions by warp (one ``warp_rows`` launch on CUDA), gaussian SSIM
 (k=11, sum-reduced), the WSSIM(alpha=1) image error, and the
 sparsification curves -> AUSE/AURG, all on the model's device; the running
 averages and the first batch's comparison PNGs live on the host.
@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from ..losses import wssim_image_error
-from ..ops import reconstruct_left_image, reconstruct_right_image, resize_bilinear
+from ..ops import resize_bilinear, warp_by_disparities
 from ..utils.progress import progress_bar
 from ..utils.viz import get_comparison, save_image
 from . import sparsification as spars
@@ -47,8 +47,10 @@ def eval_step(model, batch: dict, scale: float, noise: torch.Tensor):
     disparity = prediction[..., :2]
     uncertainty = prediction[..., 2:]
 
-    left_recon = reconstruct_left_image(disparity[..., 0:1], right)
-    right_recon = reconstruct_right_image(disparity[..., 1:2], left)
+    # the left view from the right image (reconstruct_left_image), the
+    # right view from the left, in one warp
+    left_recon, right_recon = warp_by_disparities(
+        [-disparity[..., 0:1], disparity[..., 1:2]], [right, left])
 
     left_ssim = gaussian_ssim(left_recon, left).sum()
     right_ssim = gaussian_ssim(right_recon, right).sum()

@@ -4,8 +4,9 @@ branch, with evaluation and checkpoints between epochs.
 
 One step: the 4-scale image pyramid of the stereo pair, the model's
 train-mode forward on the left view (BatchNorm on batch statistics), the
-fused reconstruction and LR-consistency warps (``warp_rows``, a kernel on
-CUDA), the composite loss, backward, and an Adam update.  Adam is
+fused reconstruction and LR-consistency warps of every scale
+(``warp_rows``, one kernel launch on CUDA), the composite loss, backward,
+and an Adam update.  Adam is
 ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` with the learning rate
 set each step: the same update as the JAX package's
 ``optax.scale_by_adam`` times ``-lr`` (eps after the bias-corrected square
