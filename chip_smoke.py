@@ -41,6 +41,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    inputs and noise; ``Trainer.train_model`` for 2 epochs of 2 batches with
    an evaluation and a checkpoint every epoch, then ``final`` loaded into a
    fresh trainer, which must hold the same parameters and Adam moments;
+3d. run the training CLI (``cli.main.main``, in this process) on
+   ``configs/uncertainty.yml`` at 256x512 from a da Vinci tree of
+   1024x1280 PNGs written first (16 train, 12 test pairs; the PNG decode
+   library ``csrc/stereo_decode.cc`` is built in phase 1 beside the
+   kernels): 2 epochs at batch 8 with an evaluation and a checkpoint each,
+   counters zeroed just before and read just after, each step's and each
+   evaluation batch's launches read on their own (5 + 5 ``warp_rows`` a
+   step, 1 forward an evaluation batch, the partial last one included,
+   nothing else); the checkpoints, comparison PNGs and ``results.json``
+   (the JAX package's schema, finite values) checked; then
+   ``--resume-from epoch_001``, which must run epoch 2 alone and write
+   ``final``;
 4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
    and (a) with ``s2d_conv_backend="lax"``), the training step and the
    eval step at batch 8 (each with the device's idle share), and each
@@ -57,7 +69,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    and the bytes of the sectors its z lanes touch, with the registers and
    spills of each glue instantiation), and break the bench path's, (a)'s,
    (b)'s, (c)'s, one step's and one eval step's device time down by
-   operator (``torch.profiler``);
+   operator (``torch.profiler``); time the CLI's loader alone (pairs/s,
+   and beside a thread running Python without pause) with one file's
+   decode stages, and the step fed by it beside the same batches as numpy
+   arrays and on the card, with the device's idle share of a fed epoch;
 5. print the ``kernels`` line, then the device line last.
 
 Phase 2 also holds ``conv_elu`` (the SAME zero-pad conv, the ungated mode
@@ -73,6 +88,8 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -104,6 +121,14 @@ CONV_F32_TOL = 1e-5     # gated_conv_elu f32: 1e-5 * (1 + sum of the terms' |.|)
 WARP_LIBRARY_TOL = 1e-2   # grid_sample vs the kernel (x -> grid rounding)
 PORT_KERNELS = ("decoder_rows", "gate_z_flat", "gated_conv",
                 "warp_rows", "upsample2x2")   # device kernel names, for the profiler
+CLI_CONFIG = "configs/uncertainty.yml"
+CLI_TRAIN_PAIRS = 16    # the CLI phase's da Vinci tree: 2 steps an epoch
+CLI_TEST_PAIRS = 12     # evaluation batches of 8 and 4 (drop_last=False)
+CLI_SOURCE_SHAPE = (1024, 1280)   # PNG size; the loader resizes to 256x512
+CLI_SHIFT = 24          # the right view's shift against the left, pixels
+CLI_EPOCHS = 2
+CLI_WORKERS = 8         # --workers: the loader's decode threads
+LOADER_REPEAT = 4       # the timed loader's epoch: the training pairs 4 times
 EVAL_BATCH = 8      # the evaluation's batch (the CLI's default)
 EVAL_BATCHES = 2
 EVAL_SSIM_RTOL = 1e-4   # card eval step vs CPU, the summed SSIM of a view
@@ -299,7 +324,16 @@ def eval_warp_group(batch):
     from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
 
     h, w = FLAGSHIP_INPUT
-    return ("eval", [(batch * h, w)] * 2, 3)
+    return (f"eval_b{batch}", [(batch * h, w)] * 2, 3)
+
+
+def cli_eval_sizes():
+    """The batch sizes of the CLI phase's evaluation, in order: full
+    batches of ``TRAIN_BATCH`` and a partial last one (``drop_last=False``)."""
+    sizes = [TRAIN_BATCH] * (CLI_TEST_PAIRS // TRAIN_BATCH)
+    if CLI_TEST_PAIRS % TRAIN_BATCH:
+        sizes.append(CLI_TEST_PAIRS % TRAIN_BATCH)
+    return sizes
 
 
 def warp_inputs(seed, rows, w, c):
@@ -326,15 +360,19 @@ def group_inputs(seed, problems, c):
 def check_warp_rows():
     """Each direction of ``warp_rows`` against its plain version at the
     groups a training step launches (``warp_groups``) and at the
-    evaluation's (``eval_warp_group``), one launch each way a group;
-    returns the worst abs error of each."""
+    evaluation's (``eval_warp_group``) for every evaluation batch size the
+    main path gives it (``EVAL_BATCH`` and the CLI's partial last batch),
+    one launch each way a group; returns the worst abs error of each."""
     from uncertainty_model_tpu_torch.ops.warp_rows import (
         warp_rows_bwd, warp_rows_bwd_many, warp_rows_bwd_plain,
         warp_rows_fwd, warp_rows_fwd_many, warp_rows_plain)
 
     worst = {"fwd": 0.0, "bwd": 0.0}
     for k, (name, problems, c) in enumerate(
-            warp_groups(TRAIN_BATCH) + [eval_warp_group(EVAL_BATCH)]):
+            warp_groups(TRAIN_BATCH)
+            + [eval_warp_group(b)
+               for b in sorted({EVAL_BATCH, *cli_eval_sizes()},
+                               reverse=True)]):
         xs, srcs, douts = group_inputs(SEED + 10 * k, problems, c)
         before = (warp_rows_fwd.launches, warp_rows_bwd.launches)
         outs = warp_rows_fwd_many(xs, srcs)
@@ -1037,6 +1075,254 @@ def run_train_model_with_checkpoints(counters, val_loader):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the training CLI, fed by the data pipeline
+# ---------------------------------------------------------------------------
+
+
+def synthetic_pair(seed, shape, shift):
+    """A stereo pair of (H, W, 3) float images in [0, 1]: a smooth random
+    scene (a few sinusoids a channel), the right view the left moved by
+    ``shift`` pixels, each with its own noise."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    yy = np.linspace(0, 1, h)[:, None]
+    xx = np.linspace(0, 1 + shift / w, w + shift)[None, :]
+    scene = np.empty((h, w + shift, 3))
+    for c in range(3):
+        f = rng.uniform(1, 6, (3, 2))
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        scene[..., c] = 0.5 + sum(
+            0.15 * np.sin(2 * np.pi * (fx * xx + fy * yy) + p)
+            for (fx, fy), p in zip(f, phase))
+    left = scene[:, shift:] + rng.normal(0, 0.04, (h, w, 3))
+    right = scene[:, :w] + rng.normal(0, 0.04, (h, w, 3))
+    return np.clip(left, 0, 1), np.clip(right, 0, 1)
+
+
+def write_davinci_tree(root, seed):
+    """``root/datasets/da-vinci/{train,test}/image_{0,1}/NNN.png``:
+    ``CLI_TRAIN_PAIRS`` and ``CLI_TEST_PAIRS`` pairs of
+    ``CLI_SOURCE_SHAPE`` PNGs by the port's writer (8-bit RGB, zlib level
+    6), written on 8 threads."""
+    import os
+
+    from uncertainty_model_tpu_torch.utils.viz import save_image
+
+    jobs = [(split, i) for split, n in (("train", CLI_TRAIN_PAIRS),
+                                        ("test", CLI_TEST_PAIRS))
+            for i in range(n)]
+    for split in ("train", "test"):
+        for side in ("image_0", "image_1"):
+            os.makedirs(os.path.join(root, "datasets", "da-vinci", split,
+                                     side), exist_ok=True)
+
+    def one(job):
+        split, i = job
+        left, right = synthetic_pair((seed, int(split == "test"), i),
+                                     CLI_SOURCE_SHAPE, CLI_SHIFT)
+        base = os.path.join(root, "datasets", "da-vinci", split)
+        save_image(left, os.path.join(base, "image_0", f"{i:03}.png"))
+        save_image(right, os.path.join(base, "image_1", f"{i:03}.png"))
+        return os.path.getsize(os.path.join(base, "image_0", f"{i:03}.png"))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(one, jobs))
+    log(f"  wrote {2 * len(jobs)} PNGs of {CLI_SOURCE_SHAPE[0]}x"
+        f"{CLI_SOURCE_SHAPE[1]} in {time.perf_counter() - t0:.1f} s "
+        f"(mean {statistics.mean(sizes) / 2 ** 20:.2f} MiB a file)")
+
+
+def cli_argv(home, out, *extra):
+    import os
+    return [CLI_CONFIG, "da-vinci", "--epochs", str(CLI_EPOCHS),
+            "--batch-size", str(TRAIN_BATCH), "--evaluate-every", "1",
+            "--save-model-every", "1", "--no-pbar",
+            "--workers", str(CLI_WORKERS), "--home", home,
+            "--save-model-to", os.path.join(out, "trained"),
+            "--save-results-to", os.path.join(out, "results"), *extra]
+
+
+def run_cli(counters, argv):
+    """``cli.main.main`` in this process on ``argv``, the counters zeroed
+    just before and read just after; each training step's and evaluation
+    batch's own launches recorded (``Trainer.train_step`` and
+    ``train.evaluate.eval_step`` wrapped, batch size beside).  Returns
+    (args, printed output, run folder, launches, per-step launches,
+    per-eval-batch launches)."""
+    import contextlib
+    import io
+    import os
+
+    from uncertainty_model_tpu_torch.cli.main import build_parser, main
+    from uncertainty_model_tpu_torch.train import evaluate, trainer
+
+    def recorded(fn, into):
+        def wrapper(*args, **kwargs):
+            before = {k: c.launches for k, c in counters.items()}
+            out = fn(*args, **kwargs)
+            into.append((len(args[1]["left"]),
+                         {k: c.launches - before[k]
+                          for k, c in counters.items()}))
+            return out
+        return wrapper
+
+    train_step, eval_step = trainer.Trainer.train_step, evaluate.eval_step
+    steps, evals = [], []
+    args = build_parser().parse_args(argv)
+    printed = io.StringIO()
+    trainer.Trainer.train_step = recorded(train_step, steps)
+    evaluate.eval_step = recorded(eval_step, evals)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        trainer.Trainer.train_step = train_step
+        evaluate.eval_step = eval_step
+    for line in printed.getvalue().splitlines():
+        if not line.startswith("\t- "):  # the arguments, already in argv
+            log(f"  | {line}")
+    runs = os.listdir(args.save_model_to)
+    if len(runs) != 1:
+        fail(f"the CLI wrote run folders {runs}")
+    log(f"  CLI run: {seconds:.1f} s; launches {launches}")
+    return args, printed.getvalue(), runs[0], launches, steps, evals
+
+
+def check_cli_launches(launches, steps, evals, epochs):
+    """5 + 5 ``warp_rows`` launches every step, 1 forward every evaluation
+    batch (the last one partial), nothing else; the totals their sums."""
+    per_step = len(warp_groups(TRAIN_BATCH))
+    n_steps = epochs * (CLI_TRAIN_PAIRS // TRAIN_BATCH)
+    eval_sizes = cli_eval_sizes()
+    zero = {name: 0 for name in launches}
+    step_want = {**zero, "warp_rows_fwd": per_step, "warp_rows_bwd": per_step}
+    eval_want = {**zero, "warp_rows_fwd": 1}
+    if [b for b, _ in steps] != [TRAIN_BATCH] * n_steps:
+        fail(f"the CLI ran steps of batch {[b for b, _ in steps]}")
+    if [b for b, _ in evals] != eval_sizes * epochs:
+        fail(f"the CLI evaluated batches of {[b for b, _ in evals]}")
+    for kind, rows, want in (("step", steps, step_want),
+                             ("evaluation batch", evals, eval_want)):
+        for b, got in rows:
+            if got != want:
+                fail(f"a CLI {kind} of batch {b} launched {got}, not {want}")
+    total = {**zero, "warp_rows_fwd": n_steps * per_step + len(evals),
+             "warp_rows_bwd": n_steps * per_step}
+    if launches != total:
+        fail(f"the CLI launched {launches}, not {total}")
+    log(f"  launches: {per_step} + {per_step} each of {n_steps} steps, 1 each "
+        f"of {len(evals)} evaluation batches (sizes "
+        f"{[b for b, _ in evals]}), {launches} in all")
+
+
+def check_cli_outputs(args, run, epochs):
+    """Checkpoints (``model.pt`` and ``train_state.pt`` in each of
+    ``epoch_NNN`` and ``final``), comparison PNGs, and ``results.json``:
+    the JAX package's schema, finite losses and metrics, one entry an
+    epoch."""
+    import os
+
+    from uncertainty_model_tpu_torch.config import load_config
+
+    model_dir = os.path.join(args.save_model_to, run)
+    results_dir = os.path.join(args.save_results_to, run)
+    first = CLI_EPOCHS - epochs + 1
+    names = [f"epoch_{e:03}" for e in range(first, CLI_EPOCHS + 1)]
+    if sorted(os.listdir(model_dir)) != names + ["final"]:
+        fail(f"the CLI wrote checkpoints {sorted(os.listdir(model_dir))}")
+    for name in names + ["final"]:
+        if sorted(os.listdir(os.path.join(model_dir, name))) != [
+                "model.pt", "train_state.pt"]:
+            fail(f"checkpoint {name} holds {os.listdir(model_dir + '/' + name)}")
+    for name in names:
+        for png in ("prediction.png", "disparity.png", "uncertainty.png"):
+            with open(os.path.join(results_dir, name, png), "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    fail(f"{name}/{png} is not a PNG")
+    with open(os.path.join(results_dir, "results.json")) as f:
+        results = json.load(f)
+    want = {"arguments": sorted(vars(args)), "config": None,
+            "losses": {"training": ["discriminator", "disparity",
+                                    "uncertainty"],
+                       "validation": {"ssim": ["left", "right"],
+                                      "sparsification": ["aurg", "ause"]}}}
+    tree = {"arguments": sorted(results["arguments"]), "config": None,
+            "losses": {"training": sorted(results["losses"]["training"]),
+                       "validation": {k: sorted(v) for k, v in
+                                      results["losses"]["validation"].items()}}}
+    if sorted(results) != ["arguments", "config", "losses"] or tree != want:
+        fail(f"results.json has the key tree {tree}, not {want}")
+    if results["config"] != load_config(CLI_CONFIG):
+        fail(f"results.json's config is not {CLI_CONFIG}")
+    training = results["losses"]["training"]
+    validation = results["losses"]["validation"]
+    values = [training["disparity"], training["uncertainty"],
+              validation["ssim"]["left"], validation["ssim"]["right"],
+              validation["sparsification"]["ause"],
+              validation["sparsification"]["aurg"]]
+    if training["discriminator"] is not None or any(
+            len(v) != epochs or not np.isfinite(v).all() for v in values):
+        fail(f"results.json losses {results['losses']}")
+    log(f"  outputs: checkpoints {names + ['final']}, comparison PNGs, "
+        f"results.json with the JAX schema; losses {training['disparity']}, "
+        f"{training['uncertainty']}; ssim {validation['ssim']}; "
+        f"sparsification {validation['sparsification']}")
+    return results
+
+
+def run_cli_path(counters, home, out):
+    """The CLI on the flagship at full width from PNG files: 2 epochs with
+    an evaluation and a checkpoint each, then ``--resume-from epoch_001``
+    (epoch 2 alone, and ``final``)."""
+    import os
+
+    import uncertainty_model_tpu_torch.train.checkpoint as ckpt
+
+    # PyTorch's defaults, as a user's process starts: the CLI's
+    # ``--precision float32`` must turn TF32 off itself
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, printed, run, launches, steps, evals = run_cli(
+        counters, cli_argv(home, os.path.join(out, "run")))
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("the CLI's --precision float32 left TF32 on")
+    check_cli_launches(launches, steps, evals, CLI_EPOCHS)
+    results = check_cli_outputs(args, run, CLI_EPOCHS)
+
+    log("  resume from epoch_001:")
+    epoch_1 = os.path.join(args.save_model_to, run, "epoch_001")
+    r_args, r_printed, r_run, r_launches, r_steps, r_evals = run_cli(
+        counters, cli_argv(home, os.path.join(out, "resumed"),
+                           "--resume-from", epoch_1))
+    if "Epoch #1:" in r_printed or "Epoch #2:" not in r_printed:
+        fail("the resumed run did not run epoch 2 alone")
+    check_cli_launches(r_launches, r_steps, r_evals, 1)
+    r_results = check_cli_outputs(r_args, r_run, 1)
+    # the card's convolution backward sums in no fixed order, so the
+    # resumed final is held only by the checks above; its distance from
+    # the uninterrupted run's is logged
+    a, _ = ckpt.load_checkpoint(os.path.join(args.save_model_to, run, "final"))
+    b, _ = ckpt.load_checkpoint(os.path.join(r_args.save_model_to, r_run,
+                                             "final"))
+    diff = max((a[k].double() - b[k].double()).abs().max().item() for k in a)
+    log(f"  resumed final vs uninterrupted final: max abs {diff:.3g} over "
+        f"{len(a)} tensors (logged; cuDNN's backward is not deterministic)")
+    return {"launches": launches, "step_launches": steps[0][1],
+            "eval_batch_sizes": [b for b, _ in evals],
+            "losses": results["losses"],
+            "resumed": {"launches": r_launches,
+                        "losses": r_results["losses"],
+                        "final_max_abs_vs_uninterrupted": diff}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -1722,6 +2008,173 @@ def time_eval_step(model, loader):
             "breakdown": breakdown}
 
 
+def repeated_train_set(home, times=LOADER_REPEAT):
+    """The CLI's training set (its augmenting transform at 256x512) with
+    its pairs listed ``times`` over: ``times * CLI_TRAIN_PAIRS`` pairs, so
+    that an epoch has enough steps to time."""
+    import os
+
+    from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
+    from uncertainty_model_tpu_torch.data import (
+        DaVinciDataset, StereoPairDataset, default_augment_transform)
+
+    ds = DaVinciDataset(os.path.join(home, "datasets", "da-vinci"), "train",
+                        default_augment_transform(FLAGSHIP_INPUT))
+    return StereoPairDataset(ds.lefts * times, ds.rights * times, ds.transform)
+
+
+def median_ms(fn, n=5):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def time_loader(home):
+    """The training loader alone (b8, ``CLI_WORKERS`` threads, the
+    augmenting transform, shuffled; the files in the OS page cache),
+    drained by a consumer that does nothing: pairs/s over 2 epochs of
+    ``repeated_train_set`` after one of warm-up; then the same beside a
+    thread that runs Python bytecode without pause (what the training
+    step's enqueue does to the interpreter lock).  Beside it, on one thread,
+    one file's decode stages (read + chunk checks + inflate; filters and
+    expansion; the resize to 256x512), one batch's fused decode + resize of
+    its 16 files on ``CLI_WORKERS`` threads, and the flip and augmentation
+    of the batch's 8 pairs (medians of 5)."""
+    import os
+
+    from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
+    from uncertainty_model_tpu_torch.data import Compose, DataLoader, native
+
+    ds = repeated_train_set(home)
+    loader = DataLoader(ds, TRAIN_BATCH, shuffle=True,
+                        num_workers=CLI_WORKERS, drop_last=True)
+
+    def drain():
+        """(pairs, seconds) of 2 epochs."""
+        pairs, t0 = 0, time.perf_counter()
+        for epoch in (1, 2):
+            loader.set_epoch(epoch)
+            for batch in loader:
+                pairs += len(batch["left"])
+        return pairs, time.perf_counter() - t0
+
+    for _ in loader:
+        pass
+    pairs, seconds = drain()
+    # the same with a thread that runs Python bytecode without pause, as
+    # the training step's enqueue does: it holds the interpreter lock but
+    # for the switch interval, and one core
+    stop = threading.Event()
+
+    def spin():
+        n = 0
+        while not stop.is_set():
+            n += 1
+
+    spinner = threading.Thread(target=spin)
+    spinner.start()
+    try:
+        busy_pairs, busy_seconds = drain()
+    finally:
+        stop.set()
+        spinner.join()
+
+    h, w = FLAGSHIP_INPUT
+    path = ds.lefts[0]
+    image = native.decode_png(path)
+    paths = ds.lefts[:TRAIN_BATCH] + ds.rights[:TRAIN_BATCH]
+    decoded = native.decode_resize_batch(paths, h, w, CLI_WORKERS)
+    rest = Compose(ds.transform.transforms[1:])
+    rngs = [np.random.default_rng((SEED, i)) for i in range(TRAIN_BATCH)]
+
+    def post_decode():
+        for j, rng in enumerate(rngs):
+            rest({"left": decoded[j], "right": decoded[TRAIN_BATCH + j]}, rng)
+
+    stages = {
+        "read_check_inflate_ms": median_ms(lambda: native._read_png(path)),
+        "decode_png_ms": median_ms(lambda: native.decode_png(path)),
+        "resize_ms": median_ms(lambda: native.resize_rgb8(image, h, w)),
+        "batch_decode_resize_ms": median_ms(
+            lambda: native.decode_resize_batch(paths, h, w, CLI_WORKERS)),
+        "batch_flip_augment_ms": median_ms(post_decode),
+    }
+    result = {"batch": TRAIN_BATCH, "workers": CLI_WORKERS,
+              "cpu_count": os.cpu_count(), "pairs": pairs,
+              "seconds": seconds, "pairs_per_s": pairs / seconds,
+              "pairs_per_s_beside_busy_thread": busy_pairs / busy_seconds,
+              "switch_interval_s": sys.getswitchinterval(),
+              "source_shape": list(CLI_SOURCE_SHAPE),
+              "file_bytes": os.path.getsize(path), **stages}
+    log(f"  loader alone: {pairs / seconds:.1f} pairs/s ({pairs} pairs in "
+        f"{seconds:.2f} s; b{TRAIN_BATCH}, {CLI_WORKERS} workers, "
+        f"os.cpu_count() {os.cpu_count()}, {CLI_SOURCE_SHAPE[0]}x"
+        f"{CLI_SOURCE_SHAPE[1]} PNGs of {result['file_bytes'] / 2 ** 20:.2f} "
+        f"MiB to 256x512); beside a thread running Python without pause "
+        f"{busy_pairs / busy_seconds:.1f} pairs/s (switch interval "
+        f"{sys.getswitchinterval() * 1e3:.1f} ms)")
+    log("  one file on one thread: read + chunk checks + inflate "
+        f"{stages['read_check_inflate_ms']:.2f} ms, whole decode "
+        f"{stages['decode_png_ms']:.2f} ms, resize {stages['resize_ms']:.2f} "
+        f"ms; a batch's 16 files on {CLI_WORKERS} threads "
+        f"{stages['batch_decode_resize_ms']:.2f} ms, its flips and "
+        f"augmentation {stages['batch_flip_augment_ms']:.2f} ms")
+    return result
+
+
+def time_fed_step(home):
+    """The f32 flagship step at b8 three ways, each timed over an epoch of
+    ``LOADER_REPEAT * CLI_TRAIN_PAIRS / 8`` steps of ``train_one_epoch``
+    (the losses read at the epoch's end, as the CLI reads them), host clock
+    to a synchronise, in turns (fed, host, device, device, host, fed, ...),
+    medians of 3 after 2 warm-up epochs of each: fed by the CLI's loader
+    (decoding and augmenting as it goes), the same epoch's batches decoded
+    beforehand and held as numpy arrays (so the step still copies them to
+    the card), and the same batches already on the card (phase 4's fixed
+    batch).  Then the device's idle share over one epoch of the fed and of
+    the device variant (``device_idle``)."""
+    from uncertainty_model_tpu_torch.data import DataLoader
+
+    trainer = flagship_trainer(SEED + 30)
+    loader = DataLoader(repeated_train_set(home), TRAIN_BATCH, shuffle=True,
+                        num_workers=CLI_WORKERS, drop_last=True)
+    host = list(loader)
+    device = [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+              for b in host]
+    scale = adjust_scale()
+    variants = {"fed": loader, "host": host, "device": device}
+
+    def epoch(name):
+        trainer.train_one_epoch(variants[name], scale, TRAIN_LR)
+        torch.cuda.synchronize()
+
+    for _ in range(2):
+        for name in variants:
+            epoch(name)
+    samples = {name: [] for name in variants}
+    order = list(variants) + list(reversed(variants))
+    for name in order + order[:3]:
+        samples[name].append(median_ms(lambda: epoch(name), n=1) / len(host))
+    ms = {name: statistics.median(v) for name, v in samples.items()}
+    log(f"  train step f32 b{TRAIN_BATCH} over epochs of {len(host)} steps "
+        f"(ms/step, median of 3): fed by the loader {ms['fed']:.2f}, "
+        f"numpy batches {ms['host']:.2f}, device batches {ms['device']:.2f}; "
+        "samples " + "; ".join(f"{k} " + ", ".join(f"{t:.2f}" for t in v)
+                               for k, v in samples.items()))
+    log("  fed epoch:")
+    fed_idle = device_idle(lambda: epoch("fed"), calls=1)
+    log("  device-batch epoch:")
+    device_idle_ = device_idle(lambda: epoch("device"), calls=1)
+    return {"steps_per_epoch": len(host), "ms_per_step": ms,
+            "samples_ms": samples, "fed_images_per_s":
+            TRAIN_BATCH / ms["fed"] * 1e3,
+            "fed_device_trace": fed_idle,
+            "device_batch_device_trace": device_idle_}
+
+
 def time_conv_elu():
     """``conv_elu`` at the native encoder's interior conv shapes at batch
     ``TIMING_BATCH`` in bf16: the kernel, the plain version and cuDNN's
@@ -1873,7 +2326,7 @@ def main() -> int:
 
     log("phase 1: build")
     build_kernels(["assemble_z", "decoder_fused", "gated_conv_elu",
-                   "warp_rows", "upsample2x2"])
+                   "warp_rows", "upsample2x2", "stereo_decode"])
 
     log("phase 2: kernels vs plain versions")
     worst = check_assemble_z()
@@ -1902,6 +2355,11 @@ def main() -> int:
     eval_vs_cpu = check_eval_step_against_cpu()
     train_model_run = run_train_model_with_checkpoints(train_counters,
                                                        eval_loader)
+
+    log("phase 3d: the training CLI fed by the data pipeline")
+    tree = tempfile.TemporaryDirectory()
+    write_davinci_tree(tree.name, SEED + 28)
+    cli_run = run_cli_path(all_counters, tree.name, tree.name)
 
     log("phase 4: times")
     fwd = time_forward(forward)
@@ -1936,6 +2394,10 @@ def main() -> int:
     eval_time = time_eval_step(eval_model, eval_loader)
     del eval_model, eval_loader
     torch.cuda.empty_cache()
+    loader_time = time_loader(tree.name)
+    fed_step = time_fed_step(tree.name)
+    tree.cleanup()
+    torch.cuda.empty_cache()
     conv_elu_rows = time_conv_elu()
     upsample_rows = time_upsample2x2()
     log(json.dumps({"forward": fwd, "s2d_forwards": s2d_fwd,
@@ -1956,6 +2418,8 @@ def main() -> int:
                                    "launches": eval_launches},
                     "eval_vs_cpu": eval_vs_cpu,
                     "train_model": train_model_run, "eval_step": eval_time,
+                    "cli": cli_run, "loader": loader_time,
+                    "fed_step": fed_step,
                     "conv_elu_shapes": conv_elu_rows,
                     "upsample2x2_sites": upsample_rows}))
 
@@ -1975,6 +2439,7 @@ def main() -> int:
             "source": "uncertainty_model_tpu_torch/csrc/warp_rows.cu",
             "replaces": f"uncertainty_model_tpu/ops/pallas/warp.py:{line}",
             "launches": train_launches[name],
+            "launches_cli": cli_run["launches"][name],
             "timed_launches": sum(r["launches_per_step"] for r in warps),
             "timed_unit": f"one training step at batch {TRAIN_BATCH}",
             "max_abs_err": warp_worst[d],

@@ -285,7 +285,12 @@ def test_port_imports_with_jax_blocked():
             "import uncertainty_model_tpu_torch.train.evaluate\n"
             "import uncertainty_model_tpu_torch.train.metrics\n"
             "import uncertainty_model_tpu_torch.train.sparsification\n"
-            "import uncertainty_model_tpu_torch.train.checkpoint\n")
+            "import uncertainty_model_tpu_torch.train.checkpoint\n"
+            "import uncertainty_model_tpu_torch.data\n"
+            "import uncertainty_model_tpu_torch.data.native\n"
+            "import uncertainty_model_tpu_torch.cli.main\n"
+            "from uncertainty_model_tpu_torch.config import load_config\n"
+            "assert load_config('configs/uncertainty.yml')['model']\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,267 @@
+"""Training CLI (the port of the JAX package's ``cli/main.py``; reference
+main.py)::
+
+    python -m uncertainty_model_tpu_torch.cli.main <config.yml> \\
+        <da-vinci|scared|cityscapes> [--epochs N] [--batch-size B]
+        [--learning-rate LR] [--finetune-from PATH] [--resume-from DIR]
+        [--training-size N] [--validation-size N] [--workers W]
+        [--save-model-to DIR] [--save-results-to DIR]
+        [--save-model-every N] [--evaluate-every N]
+        [--no-pbar] [--no-augment] [--home DIR] [--image-size H W]
+        [--seed S] [--platform cpu] [--profile-dir DIR]
+
+The JAX CLI's flags and defaults, so ``results.json`` has the same
+``arguments`` keys and the same schema.  It runs on CUDA unless
+``--platform cpu`` is given, in one process (the loader's
+``shard_index=0, num_shards=1``).  ``--precision float32`` (the default)
+turns TF32 off for cuDNN and matmuls.  Not ported yet, and refused:
+``--precision bfloat16`` (ROADMAP Queue 1 item 4), ``--adversarial``
+(item 5), ``--data-backend pil`` (the port decodes with its own PNG
+decoder), and JAX (orbax) checkpoints for ``--resume-from`` /
+``--finetune-from``, which read the port's checkpoint directories
+(``train/checkpoint.py``) or reference ``.pt`` files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from datetime import datetime
+
+# files of a JAX (orbax) checkpoint directory
+_ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("config", type=str,
+                        help="The config file path to build the model from.")
+    parser.add_argument("dataset", choices=["da-vinci", "scared", "cityscapes"],
+                        help="The dataset to use for training.")
+    parser.add_argument("--epochs", "-e", default=200, type=int)
+    parser.add_argument("--learning-rate", "-lr", default=1e-4, type=float)
+    parser.add_argument("--batch-size", "-b", default=8, type=int,
+                        help="Batch size.")
+    parser.add_argument("--adversarial", action="store_true", default=False,
+                        help="Not ported yet (ROADMAP Queue 1 item 5).")
+    parser.add_argument("--finetune-from", default=None, type=str,
+                        help="Path to a checkpoint dir of the port or a "
+                             "reference .pt file. Reference finetune "
+                             "semantics: schedules restart (lr/4, scale=1, "
+                             "reference train/utils.py:345-346).")
+    parser.add_argument("--resume-from", default=None, type=str,
+                        help="Path to a checkpoint dir of the port "
+                             "(epoch_NNN). Restores weights + Adam moments "
+                             "+ epoch and continues schedules from there — "
+                             "identical to an uninterrupted run.")
+    parser.add_argument("--training-size", default=None, nargs="?", type=int)
+    parser.add_argument("--validation-size", default=None, nargs="?", type=int)
+    parser.add_argument("--workers", "-w", default=8, type=int)
+    parser.add_argument("--save-model-to", default=None, type=str)
+    parser.add_argument("--save-results-to", default=None, type=str)
+    parser.add_argument("--save-model-every", default=10, type=int)
+    parser.add_argument("--evaluate-every", default=10, type=int)
+    parser.add_argument("--no-pbar", action="store_true", default=False)
+    parser.add_argument("--no-augment", action="store_true", default=False)
+    parser.add_argument("--home", default=os.environ.get("HOME", "."), type=str)
+    parser.add_argument("--image-size", default=(256, 512), nargs=2, type=int)
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--platform", default=None, type=str,
+                        help="The torch device: CUDA unless given (cpu for "
+                             "smoke tests).")
+    parser.add_argument("--precision", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="float32; bfloat16 is not ported yet (ROADMAP "
+                             "Queue 1 item 4).")
+    parser.add_argument("--data-backend", default="auto",
+                        choices=["auto", "native", "pil"],
+                        help="auto and native: the port's PNG decoder "
+                             "(data/native.py); pil is refused.")
+    parser.add_argument("--profile-dir", default=None, type=str,
+                        help="Write a torch.profiler trace of epoch 0 here "
+                             "(view with TensorBoard or Perfetto).")
+    return parser
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    if args.precision == "bfloat16":
+        raise NotImplementedError(
+            "--precision bfloat16: bf16 mixed-precision training is not "
+            "ported yet (ROADMAP Queue 1 item 4)")
+    if args.adversarial:
+        raise NotImplementedError(
+            "--adversarial: the discriminator and the adversarial losses "
+            "are not ported yet (ROADMAP Queue 1 item 5)")
+    if args.resume_from is not None and args.finetune_from is not None:
+        raise SystemExit("--resume-from and --finetune-from are exclusive")
+
+
+def _fix_precision(precision: str) -> None:
+    """``float32``: f32 convolutions and matmuls.  PyTorch runs cuDNN's
+    convolutions in TF32 unless told otherwise, so both switches are set
+    here rather than left to the process."""
+    import torch
+
+    assert precision == "float32", precision
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _restore(args: argparse.Namespace, trainer) -> int:
+    """Load ``--resume-from`` or ``--finetune-from`` into ``trainer``;
+    returns the epoch to start from."""
+    from ..train.checkpoint import (MODEL_FILE, load_checkpoint,
+                                    load_torch_checkpoint)
+
+    path = args.resume_from or args.finetune_from
+    if path is None:
+        return 0
+    if path.endswith(".pt"):
+        if args.resume_from is not None:
+            raise SystemExit("--resume-from needs a checkpoint directory "
+                             "(.pt files carry no optimiser state/epoch)")
+        state_dict, _ = load_torch_checkpoint(path)
+        return trainer.load_state(state_dict)
+    if not os.path.isfile(os.path.join(path, MODEL_FILE)):
+        if os.path.isdir(path) and any(
+                os.path.exists(os.path.join(path, f)) for f in _ORBAX_FILES):
+            raise ValueError(
+                f"{path} is a JAX (orbax) checkpoint, which the port cannot "
+                f"read; give a checkpoint directory of the port ({MODEL_FILE}"
+                f" beside train_state.pt) or a reference .pt file")
+        raise FileNotFoundError(f"{path}: no {MODEL_FILE}, not a checkpoint "
+                                f"directory of the port")
+    state_dict, train_state = load_checkpoint(path)
+    if args.resume_from is None:  # finetune: the weights alone
+        return trainer.load_state(state_dict)
+    return trainer.load_state(state_dict, train_state)
+
+
+def main(args: argparse.Namespace) -> None:
+    from ..config import load_config
+    from ..data import (
+        CityScapesDataset,
+        DaVinciDataset,
+        DataLoader,
+        SCAREDDataset,
+        default_augment_transform,
+        default_eval_transform,
+    )
+    from ..device import resolve_device
+    from ..models import RandomlyConnectedModel
+    from ..train import Trainer
+
+    _refuse_unported(args)
+    device = resolve_device(args.platform)
+    _fix_precision(args.precision)
+
+    print("Arguments passed:")
+    for key, value in vars(args).items():
+        print(f"\t- {key}: {value}")
+
+    dataset_path = os.path.join(args.home, "datasets", args.dataset)
+    dataset_class = {
+        "da-vinci": DaVinciDataset,
+        "scared": SCAREDDataset,
+        "cityscapes": CityScapesDataset,
+    }[args.dataset]
+
+    config = load_config(args.config)
+
+    size = tuple(args.image_size)
+    train_transform = (
+        default_eval_transform(size) if args.no_augment
+        else default_augment_transform(size)
+    )
+    eval_split = "test" if args.dataset != "cityscapes" else "val"
+    train_dataset = dataset_class(dataset_path, "train", train_transform,
+                                  args.training_size)
+    val_dataset = dataset_class(dataset_path, eval_split,
+                                default_eval_transform(size), args.validation_size)
+
+    print(f"Dataset size:"
+          f"\n\tTrain: {len(train_dataset):,} images."
+          f"\n\tTest: {len(val_dataset):,} images.")
+
+    train_loader = DataLoader(train_dataset, args.batch_size, shuffle=True,
+                              seed=args.seed, num_workers=args.workers,
+                              drop_last=True, backend=args.data_backend)
+    # evaluation keeps the last partial batch
+    val_loader = DataLoader(val_dataset, args.batch_size, shuffle=False,
+                            num_workers=args.workers, drop_last=False,
+                            backend=args.data_backend)
+
+    model = RandomlyConnectedModel.from_config(**config["model"],
+                                               seed=args.seed, device=device)
+    trainer = Trainer(model, config["loss"], device=device)
+    start_epoch = _restore(args, trainer)
+
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"Model has {n_params:,} learnable parameters."
+          f"\n\tPlatform: {device.type}")
+
+    date = datetime.now().strftime("%Y%m%d%H%M%S")
+    folder = f"model_{date}"
+    model_directory = (os.path.join(args.save_model_to, folder)
+                       if args.save_model_to else None)
+    results_directory = (os.path.join(args.save_results_to, folder)
+                         if args.save_results_to else None)
+    for d in (model_directory, results_directory):
+        if d:
+            os.makedirs(d, exist_ok=True)
+
+    training_losses, validation_metrics = trainer.train_model(
+        train_loader, args.epochs, args.learning_rate,
+        val_loader=val_loader,
+        evaluate_every=args.evaluate_every,
+        save_evaluation_to=results_directory,
+        save_every=args.save_model_every,
+        save_model_to=model_directory,
+        finetune=(args.finetune_from is not None),
+        no_pbar=args.no_pbar,
+        profile_dir=args.profile_dir,
+        start_epoch=start_epoch,
+    )
+
+    if results_directory is not None:
+        _write_results(results_directory, args, config,
+                       training_losses, validation_metrics)
+
+
+def _write_results(results_directory, args, config, training_losses,
+                   validation_metrics) -> None:
+    """results.json with the reference's schema (reference main.py:165-205),
+    as the JAX package's ``_write_results`` writes it."""
+    losses_filepath = os.path.join(results_directory, "results.json")
+
+    disp, unc, disc = (zip(*training_losses) if training_losses
+                       else ((), (), ()))
+    results_dict = {
+        "arguments": vars(args),
+        "config": config,
+        "losses": {
+            "training": {
+                "disparity": list(disp),
+                "uncertainty": list(unc),
+                "discriminator": list(disc) if args.adversarial else None,
+            }
+        },
+    }
+
+    if validation_metrics:
+        ssims, spars = zip(*validation_metrics)
+        left_ssim, right_ssim = zip(*ssims)
+        ause, aurg = zip(*spars)
+        results_dict["losses"]["validation"] = {
+            "ssim": {"left": list(left_ssim), "right": list(right_ssim)},
+            "sparsification": {"ause": list(ause), "aurg": list(aurg)},
+        }
+
+    print(f"Saving args and losses to:\n\t{losses_filepath}")
+    with open(losses_filepath, "w") as f:
+        json.dump(results_dict, f, indent=4)
+
+
+if __name__ == "__main__":
+    main(build_parser().parse_args())

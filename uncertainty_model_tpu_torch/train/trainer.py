@@ -160,13 +160,22 @@ class Trainer:
             averages = drain()
         return averages
 
+    def _profiler(self, profile_dir: str) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                profile_dir))
+
     def train_model(self, loader, epochs: int, learning_rate: float,
                     val_loader=None, evaluate_every: Optional[int] = None,
                     save_evaluation_to: Optional[str] = None,
                     save_every: Optional[int] = None,
                     save_model_to: Optional[str] = None,
                     finetune: bool = False, no_pbar: bool = False,
-                    start_epoch: int = 0):
+                    profile_dir: Optional[str] = None, start_epoch: int = 0):
         """Epochs ``start_epoch`` .. ``epochs - 1`` with the learning-rate
         schedule and the disparity-scale curriculum (reference
         train/train.py:173-267): every ``evaluate_every`` epochs an
@@ -175,7 +184,12 @@ class Trainer:
         ``save_model_to``, and ``final`` there at the end.  Returns
         ``(training_losses, validation_metrics)``: per epoch ``(disp, unc,
         disc)`` averages, and per evaluation ``((left_ssim, right_ssim),
-        (ause, aurg))``."""
+        (ause, aurg))``.
+
+        ``profile_dir``: a ``torch.profiler`` trace of epoch 0 (host
+        operators, and the device's kernels on CUDA), written there as a
+        Chrome/TensorBoard trace (``*.pt.trace.json``) when the epoch
+        ends, after the device has finished its work."""
         training_losses, validation_metrics = [], []
         for epoch in range(start_epoch, epochs):
             lr = learning_rate_for_epoch(epoch, learning_rate, finetune)
@@ -183,9 +197,17 @@ class Trainer:
             if hasattr(loader, "set_epoch"):
                 loader.set_epoch(epoch)
             t0 = time.time()
+            profiler = (self._profiler(profile_dir)
+                        if profile_dir is not None and epoch == 0 else None)
+            if profiler is not None:
+                profiler.start()
             averages = self.train_one_epoch(
                 loader, disp_scale, lr, epoch_number=epoch + 1,
                 log_every=10 if no_pbar else 0, pbar=not no_pbar)
+            if profiler is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                profiler.stop()
             training_losses.append(
                 (averages["disp"], averages["unc"], averages["disc"]))
             print(f"Epoch #{epoch + 1}:"
