@@ -53,9 +53,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    (the JAX package's schema, finite values) checked; then
    ``--resume-from epoch_001``, which must run epoch 2 alone and write
    ``final``;
+3e. run bf16 mixed-precision training (``dtype=torch.bfloat16``, with the
+   switches ``--precision bfloat16`` sets: TF32 off, bf16 products summed
+   in f32): phase 3b's path in bf16 (6 steps at batch 8, the loss must
+   fall, 5 + 5 ``warp_rows`` launches a step and no other kernel; the
+   warps take f32 disparities, so phase 2's groups are the bf16 step's);
+   parameters, gradients, BatchNorm statistics and Adam state f32 after
+   those steps; a batch-2 bf16 step on the card against the CPU's, link by
+   link as in 3b, the model backward's gradients held against bf16's own
+   noise (the CPU's bf16 against its f32 gradients) and the SE layers
+   link by link, the whole step's median below 1; 5 bf16 steps within 5%
+   of 5 f32 steps;
+   the CLI with ``--precision bfloat16`` for one epoch on phase 3d's tree
+   (launches per step and evaluation batch, outputs, ``final`` f32 and
+   reloaded exactly);
 4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
    and (a) with ``s2d_conv_backend="lax"``), the training step and the
-   eval step at batch 8 (each with the device's idle share), and each
+   eval step at batch 8 (each with the device's idle share), the bf16
+   training step at batch 8 and 32 (with its device-busy time, idle
+   share and peak memory), and each
    kernel against its plain version, its bound and the PyTorch call that
    computes the same function (``warp_rows`` per launch of a training
    step's groups, and per one-problem call at each shape as a log; CUDA
@@ -83,8 +99,10 @@ sites, at batch 64, in bf16 and f32.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -109,6 +127,7 @@ BF16_VS_F32_EVAL = 0.05    # max abs, bf16 serving vs f32 eval model
 F32_VS_F32_EVAL = 1e-3     # max abs, f32 serving vs f32 eval model (no TF32)
 
 TRAIN_BATCH = 8     # the training path's batch (the CLI's default)
+BF16_TIMING_BATCH = 32   # the bf16 step is also timed at this batch
 TRAIN_STEPS = 6
 TRAIN_LR = 1e-4     # the CLI's default learning rate
 CPU_CHECK_BATCH = 2
@@ -116,6 +135,28 @@ LOSS_RTOL = 1e-4    # card step vs CPU step, each loss
 GRAD_REL, GRAD_FLOOR = 5e-3, 5e-3   # |g_card - g_cpu| < max(rel |g|, floor)
 LOSS_GRAD_REL = 1e-5    # dL/dD card vs CPU at equal disparities, per scale
 WHOLE_STEP_MEDIAN_REL = 3e-2   # whole-step gradients card vs CPU, median
+# the bf16 step, card vs CPU.  bf16 rounding is the noise: on the CPU the
+# flagship's bf16 gradients differ from its f32 ones by 5% (the model's
+# backward of one dL/dD, median) and 96% (the whole step: the disparities
+# are quantized to about half a pixel before the warp); the card's convs
+# round a few f32 sums apart from the CPU's, and train-mode BatchNorm
+# magnifies that as much as bf16's own rounding.  So the model backward is
+# held against that noise, read in the same run: each parameter's distance
+# from the CPU's within max(BF16_PARAM_NOISE times the CPU's bf16-vs-f32
+# distance, BF16_PARAM_FLOOR), the median within BF16_NOISE_FACTOR times
+# the CPU's.  Where the card's forward flips a ReLU gate of an SE layer (a
+# hidden unit's input crossing 0), that layer's gradients jump and are
+# held link by link instead (check_se_links).  The whole step is held by
+# its median below BF16_WHOLE_STEP_MEDIAN: a missing or detached gradient
+# reads 1, an unrelated one of the same norm sqrt(2), a flipped one 2
+BF16_LOSS_RTOL = 1e-3          # each loss (tiny config vs JAX: 2.1e-4)
+BF16_LOSS_GRAD_REL = 1e-3      # dL/dD at equal bf16 disparities, per scale
+BF16_NOISE_FACTOR = 1.5        # the model backward's median
+BF16_PARAM_NOISE, BF16_PARAM_FLOOR = 4.0, 0.25
+BF16_SE_ALONE_REL = 1e-3       # an SE layer's gradients, card vs alone on the CPU
+BF16_WHOLE_STEP_MEDIAN = 1.0
+BF16_TRAJECTORY_REL = 0.05     # bf16 vs f32 loss per step (the JAX bound)
+BF16_TRAJECTORY_LR = 1e-3      # tests/test_mixed_precision.py's
 DSRC_TOL = 1e-5     # warp_rows dsrc: 1e-5 * (1 + sum of the terms' |.|)
 CONV_F32_TOL = 1e-5     # gated_conv_elu f32: 1e-5 * (1 + sum of the terms' |.|)
 WARP_LIBRARY_TOL = 1e-2   # grid_sample vs the kernel (x -> grid rounding)
@@ -195,6 +236,13 @@ def log(*args):
     print(*args, flush=True)
 
 
+START = time.perf_counter()
+
+
+def phase(name):
+    log(f"phase {name} (at {time.perf_counter() - START:.1f} s)")
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -231,13 +279,24 @@ def build_kernels(sources):
 # ---------------------------------------------------------------------------
 
 
-def assemble_z_inputs(seed, b, h, w, cso, cu, cd, cf, dtype, device="cuda"):
-    rng = np.random.default_rng(seed)
+def card_rng(seed):
+    """A generator of the card's seeded with ``seed``: the inputs of the
+    kernel checks and timings are drawn on the card (numpy's draws and the
+    copy of b64 activations took most of phases 2 and 4)."""
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def normal(rng, *shape, scale=1.0, dtype=torch.float32):
+    """N(0, scale^2) draws of ``rng`` on the card, in ``dtype``."""
+    return (scale * torch.randn(shape, generator=rng, device="cuda")).to(dtype)
+
+
+def assemble_z_inputs(seed, b, h, w, cso, cu, cd, cf, dtype):
+    rng = card_rng(seed)
     h2, w2 = h // 2, w // 2
 
     def t(*shape, dt=dtype):
-        a = rng.normal(size=shape).astype(np.float32)
-        return torch.from_numpy(a).to(device=device, dtype=dt)
+        return normal(rng, *shape, dtype=dt)
 
     se = t(b, h, w, cf or cso)
     skip, xc = t(b, h2, w2, cso), t(b, h2, w2, 4 * cu)
@@ -339,15 +398,15 @@ def cli_eval_sizes():
 def warp_inputs(seed, rows, w, c):
     """x over [-0.3 W - 1, 1.3 W + 1] (outside [0, W) included) with a third
     of it on integers, src and a cotangent, on the card."""
-    rng = np.random.default_rng(seed)
-    x = rng.uniform(-0.3 * w - 1, 1.3 * w + 1, size=(rows, w))
-    integer = rng.uniform(size=(rows, w)) < 1 / 3
-    x[integer] = np.round(x[integer])
+    rng = card_rng(seed)
 
-    def t(a):
-        return torch.from_numpy(a.astype(np.float32)).to("cuda")
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((rows, w), generator=rng,
+                                           device="cuda", dtype=torch.float64)
 
-    return t(x), t(rng.normal(size=(rows, w, c))), t(rng.normal(size=(rows, w, c)))
+    x = uniform(-0.3 * w - 1, 1.3 * w + 1)
+    x = torch.where(uniform(0.0, 1.0) < 1 / 3, x.round(), x).float()
+    return x, normal(rng, rows, w, c), normal(rng, rows, w, c)
 
 
 def group_inputs(seed, problems, c):
@@ -409,10 +468,10 @@ def check_warp_rows():
     return worst
 
 
-def decoder_gates(seed, b, cso, dtype, device="cuda"):
+def decoder_gates(seed, b, cso, dtype):
     """SE gates in (0, 1), as the SE MLP's sigmoid gives them."""
-    g = np.random.default_rng(seed).uniform(0.05, 1.0, (b, cso))
-    return torch.from_numpy(g.astype(np.float32)).to(device=device, dtype=dtype)
+    g = torch.rand((b, cso), generator=card_rng(seed), device="cuda")
+    return (0.05 + 0.95 * g).to(dtype)
 
 
 def check_decoder_glue():
@@ -482,12 +541,11 @@ def gated_conv_inputs(seed, b, h, w, c, k, n, dtype):
     kernel scaled to keep the output O(1), an f32 bias, on the card."""
     import torch.nn.functional as F
 
-    rng = np.random.default_rng(seed)
+    rng = card_rng(seed)
     p = (k - 1) // 2
 
     def t(*shape, scale=1.0, dt=dtype):
-        a = (scale * rng.normal(size=shape)).astype(np.float32)
-        return torch.from_numpy(a).to(device="cuda", dtype=dt)
+        return normal(rng, *shape, scale=scale, dtype=dt)
 
     xs = [F.pad(t(b, h, w, c), (0, 0, p, p, p, p)) for _ in range(n)]
     gates = torch.sigmoid(t(n, dt=torch.float32))
@@ -535,11 +593,10 @@ def check_gated_conv_elu():
 def conv_elu_inputs(seed, b, h, w, c, k, dtype):
     """Unpadded (B, H, W, C) input, an HWIO kernel scaled to keep the
     output O(1) and an f32 bias, on the card."""
-    rng = np.random.default_rng(seed)
+    rng = card_rng(seed)
 
     def t(*shape, scale=1.0, dt=dtype):
-        a = (scale * rng.normal(size=shape)).astype(np.float32)
-        return torch.from_numpy(a).to(device="cuda", dtype=dt)
+        return normal(rng, *shape, scale=scale, dtype=dt)
 
     return (t(b, h, w, c), t(k, k, c, c, scale=(k * k * c) ** -0.5),
             t(c, scale=0.1, dt=torch.float32))
@@ -586,8 +643,7 @@ def check_conv_elu():
 
 
 def upsample_input(seed, b, h, w, c, dtype):
-    x = np.random.default_rng(seed).normal(size=(b, h, w, c))
-    return torch.from_numpy(x.astype(np.float32)).to("cuda", dtype)
+    return normal(card_rng(seed), b, h, w, c, dtype=dtype)
 
 
 def check_upsample2x2():
@@ -758,27 +814,31 @@ def stereo_batch(batch, seed, device="cuda"):
         for side in ("left", "right")}
 
 
-def flagship_trainer(seed, device="cuda"):
-    """The flagship in train mode from ``seed`` with ``FLAGSHIP_LOSS``."""
+def flagship_trainer(seed, device="cuda", dtype=None):
+    """The flagship in train mode from ``seed`` with ``FLAGSHIP_LOSS``,
+    computing in ``dtype`` (None: f32)."""
     from uncertainty_model_tpu_torch.config import FLAGSHIP_LOSS, FLAGSHIP_MODEL
     from uncertainty_model_tpu_torch.models import RandomlyConnectedModel
     from uncertainty_model_tpu_torch.train import Trainer
 
-    model = RandomlyConnectedModel.from_config(**FLAGSHIP_MODEL, seed=seed,
+    model = RandomlyConnectedModel.from_config(**FLAGSHIP_MODEL, dtype=dtype,
+                                               seed=seed,
                                                device=device).train()
     return Trainer(model, FLAGSHIP_LOSS, device=device)
 
 
-def run_training_path(counters):
+def run_training_path(counters, dtype=None):
     """``train_one_epoch`` over ``TRAIN_STEPS`` repeats of one batch, the
-    losses read after every step; returns (trainer, batch, disp_scale,
+    losses read after every step, the model computing in ``dtype`` (None:
+    f32); every ``warp_rows`` counter must grow by its launches a step,
+    every other by none.  Returns (trainer, batch, disp_scale,
     launches)."""
     from uncertainty_model_tpu_torch.utils.schedules import adjust_disparity
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     disp_scale = adjust_disparity(0)
-    trainer = flagship_trainer(SEED)
+    trainer = flagship_trainer(SEED, dtype=dtype)
     batch = stereo_batch(TRAIN_BATCH, SEED + 4)
     seen = []
 
@@ -799,20 +859,26 @@ def run_training_path(counters):
     for i, (_, avg) in enumerate(seen):
         losses.append((avg * (i + 1) - previous) * TRAIN_BATCH)
         previous = avg * (i + 1)
-    log(f"training path: flagship f32 b{TRAIN_BATCH} 256x512, disp_scale "
-        f"{disp_scale}, lr {TRAIN_LR}: total loss per step "
-        + ", ".join(f"{v:.6f}" for v in losses) + f"; launches {launches}")
+    log(f"training path: flagship {dtype_name(dtype)} b{TRAIN_BATCH} "
+        f"256x512, disp_scale {disp_scale}, lr {TRAIN_LR}: total loss per "
+        "step " + ", ".join(f"{v:.6f}" for v in losses)
+        + f"; launches {launches}")
     if len(seen) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"training losses {losses}")
     per_step = len(warp_groups(TRAIN_BATCH))
     for i, (counts, _) in enumerate(seen):
         for name, n in counts.items():
-            if n != per_step * (i + 1):
+            want = per_step * (i + 1) if name.startswith("warp_rows") else 0
+            if n != want:
                 fail(f"{name} launched {n} times in {i + 1} steps, not "
-                     f"{per_step} a step")
+                     f"{want}")
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
     return trainer, batch, disp_scale, launches
+
+
+def dtype_name(dtype):
+    return "f32" if dtype is None else str(dtype).removeprefix("torch.")
 
 
 def step_disparities(trainer, batch, disp_scale):
@@ -839,13 +905,29 @@ def loss_grad(trainer, batch, disparities):
     return [g.cpu() for g in torch.autograd.grad(disp_loss + error_loss, ds)]
 
 
-def model_grads(trainer, batch, disp_scale, cotangents):
+def model_grads(trainer, batch, disp_scale, cotangents, se_seen=None):
     """Each parameter's gradient (on the CPU) of the forward, driven back
-    from the disparities by the given cotangents."""
+    from the disparities by the given cotangents.  A list ``se_seen``
+    receives, per decoder stage, its SE layer's input ``x`` and output
+    gradient ``dy`` in this forward and backward (on the CPU)."""
+    handles = []
+    if se_seen is not None:
+        def hook(seen):
+            def forward(module, args, out):
+                seen["x"] = args[0].detach().cpu()
+                out.register_hook(
+                    lambda g: seen.__setitem__("dy", g.detach().cpu()))
+            return forward
+        for stage in trainer.model.decoder.layers:
+            se_seen.append({})
+            handles.append(stage.squeeze_excite[1].register_forward_hook(
+                hook(se_seen[-1])))
     trainer.model.zero_grad(set_to_none=True)
     disparities = step_disparities(trainer, batch, disp_scale)
     torch.autograd.backward(disparities,
                             [c.to(trainer.device) for c in cotangents])
+    for h in handles:
+        h.remove()
     return {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}
 
 
@@ -895,9 +977,10 @@ def check_step_against_cpu(disp_scale):
             f"{LOSS_RTOL})")
         if not rel <= LOSS_RTOL:
             fail(f"card step {key} differs from the CPU step")
+    cpu_grads = {n: p.grad for n, p in cpu.model.named_parameters()}
     share, median = grad_check(
         {n: p.grad.cpu() for n, p in card.model.named_parameters()},
-        {n: p.grad for n, p in cpu.model.named_parameters()})
+        cpu_grads)
     result.update(whole_step_worst_share=share, whole_step_median_rel=median)
     log(f"  whole step, card vs CPU gradients: median relative {median:.3g} "
         f"(limit {WHOLE_STEP_MEDIAN_REL}); worst at {share:.3g} of "
@@ -938,7 +1021,7 @@ def check_step_against_cpu(disp_scale):
         f"{median:.3g}; CPU step {cpu_s:.1f} s")
     if not share < 1:
         fail("the card's model backward differs from the CPU's")
-    return result
+    return result, cpu_grads
 
 
 # ---------------------------------------------------------------------------
@@ -1222,19 +1305,18 @@ def check_cli_launches(launches, steps, evals, epochs):
         f"{[b for b, _ in evals]}), {launches} in all")
 
 
-def check_cli_outputs(args, run, epochs):
+def check_cli_outputs(args, run, epochs, first=1):
     """Checkpoints (``model.pt`` and ``train_state.pt`` in each of
     ``epoch_NNN`` and ``final``), comparison PNGs, and ``results.json``:
-    the JAX package's schema, finite losses and metrics, one entry an
-    epoch."""
+    the JAX package's schema, finite losses and metrics, one entry for
+    each of the ``epochs`` epochs the run ran, from epoch ``first``."""
     import os
 
     from uncertainty_model_tpu_torch.config import load_config
 
     model_dir = os.path.join(args.save_model_to, run)
     results_dir = os.path.join(args.save_results_to, run)
-    first = CLI_EPOCHS - epochs + 1
-    names = [f"epoch_{e:03}" for e in range(first, CLI_EPOCHS + 1)]
+    names = [f"epoch_{e:03}" for e in range(first, first + epochs)]
     if sorted(os.listdir(model_dir)) != names + ["final"]:
         fail(f"the CLI wrote checkpoints {sorted(os.listdir(model_dir))}")
     for name in names + ["final"]:
@@ -1304,7 +1386,7 @@ def run_cli_path(counters, home, out):
     if "Epoch #1:" in r_printed or "Epoch #2:" not in r_printed:
         fail("the resumed run did not run epoch 2 alone")
     check_cli_launches(r_launches, r_steps, r_evals, 1)
-    r_results = check_cli_outputs(r_args, r_run, 1)
+    r_results = check_cli_outputs(r_args, r_run, 1, first=CLI_EPOCHS)
     # the card's convolution backward sums in no fixed order, so the
     # resumed final is held only by the checks above; its distance from
     # the uninterrupted run's is logged
@@ -1320,6 +1402,320 @@ def run_cli_path(counters, home, out):
             "resumed": {"launches": r_launches,
                         "losses": r_results["losses"],
                         "final_max_abs_vs_uninterrupted": diff}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: bf16 mixed-precision training
+# ---------------------------------------------------------------------------
+
+
+def bf16_matmuls():
+    """What ``--precision bfloat16`` sets: f32 products in full f32 (TF32
+    off), bf16 products summed in f32 by cuBLAS, as XLA sums them.
+    Returns the previous reduced-precision switch, to restore."""
+    previous = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return previous
+
+
+def check_f32_state(trainer, label):
+    """Parameters, their gradients, BatchNorm statistics and Adam's moments
+    are f32 after bf16 steps."""
+    model = trainer.model
+    bad = [n for n, p in model.named_parameters()
+           if p.dtype != torch.float32
+           or (p.grad is not None and p.grad.dtype != torch.float32)]
+    bad += [n for n, b in model.named_buffers()
+            if b.is_floating_point() and b.dtype != torch.float32]
+    state = trainer.optimizer.state_dict()["state"]
+    bad += [f"adam {i} {k}" for i, m in state.items()
+            for k in ("exp_avg", "exp_avg_sq") if m[k].dtype != torch.float32]
+    if bad or len(state) != len(list(model.parameters())):
+        fail(f"{label}: not f32 or no Adam state: {bad[:5]}")
+    log(f"  {label}: {len(list(model.parameters()))} parameters, their "
+        f"gradients, the BatchNorm statistics and {len(state)} Adam states "
+        "are f32")
+
+
+def rel(a, b):
+    """||a - b|| / ||b||, in f64."""
+    return (a.double() - b.double()).norm().item() / max(
+        b.double().norm().item(), 1e-30)
+
+
+def noise_check(got, want, exact, exempt=()):
+    """The bf16 gradients ``got`` (card) against ``want`` (CPU), with the
+    CPU's f32 gradients ``exact`` as the noise yardstick.  Returns (worst
+    share of the per-parameter limit, max(BF16_PARAM_NOISE x the CPU's
+    bf16 gradient's distance from the f32 one, BF16_PARAM_FLOOR)
+    relative, over the parameters not in ``exempt``; the card's median
+    relative difference; the CPU's bf16-vs-f32 median; the largest norm
+    ratio card / CPU where the exact gradient is 0, which holds only the
+    reductions' rounding, in another order on each device: reported, not
+    held)."""
+    def norm(t):
+        return t.double().norm().item()
+
+    # an exact gradient of 0 (a conv bias ahead of train-mode BatchNorm,
+    # the attention keys' bias): the f32 one under 1e-3 of the bf16 ones,
+    # or under 1e-6 of the model's largest
+    floor = 1e-6 * max(norm(w) for w in want.values())
+    shares, zero = {}, {}
+    for name, w in want.items():
+        wn, gn = norm(w), norm(got[name])
+        if norm(exact[name]) < max(1e-3 * max(wn, gn), floor):
+            zero[name] = gn / max(wn, floor)
+            continue
+        if name in exempt:
+            continue
+        limit = max(BF16_PARAM_NOISE * rel(w, exact[name]), BF16_PARAM_FLOOR)
+        shares[name] = rel(got[name], w) / limit
+    median = float(np.median([rel(got[n], want[n]) for n in want]))
+    noise = float(np.median([rel(want[n], exact[n]) for n in want]))
+    for kind, rows in (("share of its limit", shares),
+                       ("zero-gradient ratio", zero)):
+        worst = sorted(rows, key=rows.get)[-3:]
+        log(f"    worst {kind}: " + ", ".join(
+            f"{n} {rows[n]:.3g} (card vs CPU {rel(got[n], want[n]):.3g}, "
+            f"CPU bf16 vs f32 {rel(want[n], exact[n]):.3g})" for n in worst))
+    return max(shares.values()), median, noise, max(zero.values(), default=0)
+
+
+def se_alone(trainer, stage, x, dy):
+    """The backward of a copy of ``trainer``'s (on the CPU) decoder stage
+    ``stage`` SE layer alone, from the input ``x`` and output gradient
+    ``dy``: its parameters' gradients, by the model's names, and the input
+    of its ReLU."""
+    layer = copy.deepcopy(
+        trainer.model.decoder.layers[stage].squeeze_excite[1])
+    seen = {}
+    layer.excite[1].register_forward_hook(
+        lambda m, args, out: seen.__setitem__("h", args[0].detach()))
+    layer(x).backward(dy)
+    prefix = f"decoder.layers.{stage}.squeeze_excite.1."
+    return ({prefix + n: q.grad for n, q in layer.named_parameters()},
+            seen["h"])
+
+
+def check_se_links(cpu, f32, seen, card_grads, cpu_grads, exact):
+    """The decoder's SE layers in the bf16 model backward of one dL/dD,
+    link by link.  Per stage, held: the card's gradients of the layer's
+    parameters equal those of the CPU's copy of the layer run alone from
+    the input ``x`` and output gradient ``dy`` that the card's backward
+    met, within ``BF16_SE_ALONE_REL``; and that ``x`` and ``dy`` lie within
+    ``BF16_PARAM_NOISE`` times the CPU's bf16-vs-f32 distance of the CPU's.
+    Reported: the ReLU gates (batch x hidden units) that the card's ``x``
+    opens or closes against the CPU's (and the f32 model's against the
+    CPU's bf16), and how far the card's ``x`` alone moves each gradient.
+    Returns (rows, the parameters of the layers where a gate flipped)."""
+    rows, flipped = [], []
+    for i, (c, p, f) in enumerate(zip(seen["card"], seen["cpu"],
+                                      seen["f32"])):
+        prefix = f"decoder.layers.{i}.squeeze_excite.1."
+        names = [n for n in cpu_grads if n.startswith(prefix)]
+        base, h = se_alone(cpu, i, p["x"], p["dy"])
+        own, h_card = se_alone(cpu, i, c["x"], c["dy"])
+        card_x, _ = se_alone(cpu, i, c["x"], p["dy"])
+        _, h_f32 = se_alone(f32, i, f["x"], f["dy"])
+        gates = [int(((h_card > 0) != (h > 0)).sum()),
+                 int(((h_f32 > 0) != (h > 0)).sum()), h.numel()]
+        row = {"stage": i, "gates_flipped": gates,
+               "x": [rel(c["x"], p["x"]), rel(p["x"], f["x"])],
+               "dy": [rel(c["dy"], p["dy"]), rel(p["dy"], f["dy"])],
+               "params": {n.removeprefix(prefix): {
+                   "card_vs_cpu": rel(card_grads[n], cpu_grads[n]),
+                   "cpu_bf16_vs_f32": rel(cpu_grads[n], exact[n]),
+                   "card_vs_alone": rel(card_grads[n], own[n]),
+                   "card_x_moves": rel(card_x[n], base[n])}
+                   for n in names}}
+        rows.append(row)
+        if gates[0]:
+            flipped += names
+        log(f"    SE of decoder stage {i}: x card vs CPU {row['x'][0]:.3g} "
+            f"(CPU bf16 vs f32 {row['x'][1]:.3g}), dy {row['dy'][0]:.3g} "
+            f"({row['dy'][1]:.3g}) (limit {BF16_PARAM_NOISE} x); ReLU gates "
+            f"flipped by the card's x {gates[0]} of {gates[2]} (by f32 "
+            f"{gates[1]}); " + ", ".join(
+                f"{n}: card vs CPU {v['card_vs_cpu']:.3g} (CPU bf16 vs f32 "
+                f"{v['cpu_bf16_vs_f32']:.3g}), the card's x alone moves it "
+                f"{v['card_x_moves']:.3g}, card vs the layer alone from the "
+                f"card's x and dy {v['card_vs_alone']:.3g} (limit "
+                f"{BF16_SE_ALONE_REL})" for n, v in row["params"].items()))
+        if not (max(v["card_vs_alone"] for v in row["params"].values())
+                <= BF16_SE_ALONE_REL
+                and row["x"][0] <= BF16_PARAM_NOISE * row["x"][1]
+                and row["dy"][0] <= BF16_PARAM_NOISE * row["dy"][1]):
+            fail(f"the card's bf16 SE layer of decoder stage {i} differs from "
+                 "the CPU's")
+    return rows, flipped
+
+
+def check_bf16_step_against_cpu(disp_scale, cpu_f32_grads):
+    """One bf16 step at batch ``CPU_CHECK_BATCH`` on the card against the
+    same step on the CPU (the plain versions), the weights and batch of
+    phase 3b's check, link by link as there: the losses within
+    ``BF16_LOSS_RTOL``; dL/dD at the CPU's bf16 disparities within
+    ``BF16_LOSS_GRAD_REL`` per scale; the model backward of that dL/dD
+    per parameter and by its median against the bf16 noise
+    (``noise_check``, the f32 model's backward of the same dL/dD the exact
+    side), the SE layers link by link (``check_se_links``); the whole
+    step by its median below ``BF16_WHOLE_STEP_MEDIAN`` (the CPU's f32
+    step of phase 3b read beside it)."""
+    cpu = flagship_trainer(SEED + 5, device="cpu", dtype=torch.bfloat16)
+    card = flagship_trainer(SEED + 5, dtype=torch.bfloat16)
+    batch = stereo_batch(CPU_CHECK_BATCH, SEED + 6, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.train_step(batch, disp_scale, 0.0)
+    cpu_s = time.perf_counter() - t0
+    got = card.train_step(batch, disp_scale, 0.0)
+    torch.cuda.synchronize()
+    result = {"loss_rel": 0.0}
+    for key in want:
+        w, g = want[key].item(), got[key].item()
+        loss_rel = abs(g - w) / abs(w)
+        result["loss_rel"] = max(result["loss_rel"], loss_rel)
+        log(f"  bf16 {key}: card {g:.7f} cpu {w:.7f} (rel {loss_rel:.3g}, "
+            f"limit {BF16_LOSS_RTOL})")
+        if not loss_rel <= BF16_LOSS_RTOL:
+            fail(f"the card's bf16 step {key} differs from the CPU's")
+    cpu_grads = {n: p.grad for n, p in cpu.model.named_parameters()}
+    card_grads = {n: p.grad.cpu() for n, p in card.model.named_parameters()}
+    card.train_step(batch, disp_scale, 0.0)
+    result["whole_step_card_repeat_median_rel"] = float(np.median(
+        [rel(p.grad.cpu(), card_grads[n])
+         for n, p in card.model.named_parameters()]))
+    share, median, noise, zero = noise_check(card_grads, cpu_grads,
+                                             cpu_f32_grads)
+    result.update(whole_step_median_rel=median, cpu_bf16_vs_f32_median=noise,
+                  whole_step_worst_share_reported=share)
+    log(f"  bf16 whole step, card vs CPU gradients: median relative "
+        f"{median:.3g} (limit {BF16_WHOLE_STEP_MEDIAN}; the CPU's bf16 vs f32 "
+        f"{noise:.3g}; the card's step again "
+        f"{result['whole_step_card_repeat_median_rel']:.3g}); per parameter "
+        f"worst at {share:.3g} of its limit (reported)")
+    if not median < BF16_WHOLE_STEP_MEDIAN:
+        fail("the card's bf16 step gradients are no nearer the CPU's than "
+             "zero is")
+
+    with torch.no_grad():
+        d_cpu = step_disparities(cpu, batch, disp_scale)
+        d_card = step_disparities(card, batch, disp_scale)
+    result["disparity_max_abs"] = max((a - b.cpu()).abs().max().item()
+                                      for a, b in zip(d_cpu, d_card))
+    cot = loss_grad(cpu, batch, d_cpu)
+    card_cot = loss_grad(card, batch, d_cpu)
+    result["loss_grad_rel"] = [((a - b).norm() / a.norm()).item()
+                               for a, b in zip(card_cot, cot)]
+    log(f"  bf16 disparities card vs CPU: max abs "
+        f"{result['disparity_max_abs']:.3g}; dL/dD at the CPU's disparities, "
+        f"card vs CPU: " + ", ".join(f"{v:.3g}" for v in
+                                     result["loss_grad_rel"])
+        + f" (relative, per scale; limit {BF16_LOSS_GRAD_REL})")
+    if not max(result["loss_grad_rel"]) <= BF16_LOSS_GRAD_REL:
+        fail("the card's loss gradient at bf16 disparities differs from the "
+             "CPU's")
+
+    seen = {"card": [], "cpu": [], "f32": []}
+    f32 = flagship_trainer(SEED + 5, device="cpu")
+    exact = model_grads(f32, batch, disp_scale, cot, seen["f32"])
+    card_grads = model_grads(card, batch, disp_scale, cot, seen["card"])
+    cpu_grads = model_grads(cpu, batch, disp_scale, cot, seen["cpu"])
+    result["se_links"], flipped = check_se_links(
+        cpu, f32, seen, card_grads, cpu_grads, exact)
+    share, median, noise, zero = noise_check(card_grads, cpu_grads, exact,
+                                             exempt=flipped)
+    result.update(model_backward_worst_share=share,
+                  model_backward_median_rel=median,
+                  model_backward_cpu_noise=noise,
+                  model_backward_zero_ratio=zero)
+    log(f"  bf16 model backward of the same dL/dD, card vs CPU: worst at "
+        f"{share:.3g} of max({BF16_PARAM_NOISE} x the bf16-vs-f32 distance, "
+        f"{BF16_PARAM_FLOOR}) (held link by link instead: "
+        f"{', '.join(flipped) or 'none'}); median relative {median:.3g} "
+        f"(limit {BF16_NOISE_FACTOR} x the CPU's bf16 vs f32 {noise:.3g}); "
+        f"where the exact gradient is 0 the card's at most {zero:.3g} of the "
+        f"CPU's (reported); CPU bf16 step {cpu_s:.1f} s")
+    if not (share <= 1 and median <= BF16_NOISE_FACTOR * noise):
+        fail("the card's bf16 model backward differs from the CPU's by more "
+             "than bf16's noise")
+    return result
+
+
+def check_bf16_trajectory(steps=5):
+    """``steps`` steps on seeded batches of ``TRAIN_BATCH`` at lr
+    ``BF16_TRAJECTORY_LR`` from the same weights, in bf16 and in f32 on the
+    card: each step's total loss within ``BF16_TRAJECTORY_REL``."""
+    batches = [stereo_batch(TRAIN_BATCH, SEED + 41 + i) for i in range(steps)]
+    losses = {}
+    for dtype in (None, torch.bfloat16):
+        trainer = flagship_trainer(SEED + 40, dtype=dtype)
+        run = [trainer.train_step(b, adjust_scale(), BF16_TRAJECTORY_LR, i)
+               for i, b in enumerate(batches)]
+        losses[dtype_name(dtype)] = [(m["disp_loss"] + m["error_loss"]).item()
+                                     for m in run]
+        del trainer
+    rel = [abs(b - f) / abs(f) for b, f in zip(losses["bfloat16"],
+                                               losses["f32"])]
+    log(f"  bf16 vs f32 on the card, {steps} steps at b{TRAIN_BATCH}, lr "
+        f"{BF16_TRAJECTORY_LR}: losses f32 "
+        + ", ".join(f"{v:.6f}" for v in losses["f32"]) + "; bf16 "
+        + ", ".join(f"{v:.6f}" for v in losses["bfloat16"])
+        + f"; worst relative {max(rel):.3g} (limit {BF16_TRAJECTORY_REL})")
+    if not (np.isfinite(losses["bfloat16"]).all()
+            and max(rel) < BF16_TRAJECTORY_REL):
+        fail("the bf16 trajectory leaves the f32 one")
+    return {"losses": losses, "max_rel": max(rel)}
+
+
+def run_bf16_cli(counters, home, out):
+    """``--precision bfloat16`` for one epoch with an evaluation and a
+    checkpoint, on phase 3d's tree: the launches of each step and
+    evaluation batch, the outputs, the switches the CLI sets, and
+    ``final`` (f32 tensors, equal to ``epoch_001``) reloaded into a fresh
+    bf16 trainer exactly."""
+    from uncertainty_model_tpu_torch.train import load_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    args, printed, run, launches, steps, evals = run_cli(
+        counters, cli_argv(home, out, "--precision", "bfloat16",
+                           "--epochs", "1"))
+    if (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction):
+        fail("the CLI's --precision bfloat16 left TF32 or bf16 reduced-"
+             "precision sums on")
+    check_cli_launches(launches, steps, evals, 1)
+    results = check_cli_outputs(args, run, 1)
+    model_dir = os.path.join(args.save_model_to, run)
+    state, train_state = load_checkpoint(os.path.join(model_dir, "final"))
+    epoch_1, _ = load_checkpoint(os.path.join(model_dir, "epoch_001"))
+    moments = train_state["optimizer"]["state"]
+    if not all(v.dtype == torch.float32 for k, v in state.items()
+               if "num_batches_tracked" not in k) or not all(
+                   m[k].dtype == torch.float32 for m in moments.values()
+                   for k in ("exp_avg", "exp_avg_sq")):
+        fail("a bf16 run's checkpoint holds tensors that are not f32")
+    if not all(torch.equal(state[k], epoch_1[k]) for k in state):
+        fail("the one-epoch run's final differs from its epoch_001")
+    fresh = flagship_trainer(SEED + 29, dtype=torch.bfloat16)
+    fresh.load_state(state, train_state)
+    same_params = all(torch.equal(v.cpu(), state[k]) for k, v in
+                      fresh.model.state_dict().items())
+    loaded = fresh.optimizer.state_dict()["state"]
+    same_moments = loaded.keys() == moments.keys() and all(
+        torch.equal(loaded[i][k].cpu(), moments[i][k]) for i in moments
+        for k in ("step", "exp_avg", "exp_avg_sq"))
+    log(f"  bf16 CLI: final holds f32 tensors, equals epoch_001, and reloads "
+        f"into a fresh bf16 trainer: parameters {same_params}, Adam moments "
+        f"{same_moments}")
+    if not (same_params and same_moments):
+        fail("the bf16 run's final does not reload exactly")
+    return {"launches": launches, "step_launches": steps[0][1],
+            "eval_batch_sizes": [b for b, _ in evals],
+            "losses": results["losses"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1583,11 +1979,13 @@ def device_idle(fn, calls=3):
     return result
 
 
-def time_train_step(trainer, batch, disp_scale):
+def time_train_step(trainer, batch, disp_scale, label="f32"):
     """CUDA-event time of a step (20 steps of warm-up: the first 15 or so
     after the training path run slower; then the median and spread of 9
     samples of 5 back-to-back steps each), the device's idle share over 3
     steps (``device_idle``) and the peak memory."""
+    b = len(batch["left"])
+
     def step():
         trainer.train_step(batch, disp_scale, TRAIN_LR)
 
@@ -1601,14 +1999,35 @@ def time_train_step(trainer, batch, disp_scale):
     step()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    log(f"  train step f32 b{TRAIN_BATCH} 256x512: {ms:.2f} ms/step (spread "
+    log(f"  train step {label} b{b} 256x512: {ms:.2f} ms/step (spread "
         f"{spread:.2f} ms over 9 samples of 5 steps), "
-        f"{TRAIN_BATCH / ms * 1e3:.1f} images/s, peak memory "
-        f"{peak / 2 ** 30:.2f} GiB")
-    return {"batch": TRAIN_BATCH, "ms": ms, "ms_spread": spread,
-            "samples_ms": times, "images_per_s": TRAIN_BATCH / ms * 1e3,
+        f"{b / ms * 1e3:.1f} images/s, device busy "
+        f"{idle.get('busy_ms_per_call') or float('nan'):.2f} ms/step, peak "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+    return {"dtype": label, "batch": b, "ms": ms, "ms_spread": spread,
+            "samples_ms": times, "images_per_s": b / ms * 1e3,
             "device_trace": idle,
             "max_memory_allocated": peak}
+
+
+def time_bf16_steps(trainer, batch, disp_scale):
+    """The bf16 step at batch ``TRAIN_BATCH`` (``trainer`` and ``batch``:
+    phase 3e's) and ``BF16_TIMING_BATCH``, as ``time_train_step`` times the
+    f32 one, and the larger one's device time by operator
+    (``--precision bfloat16``'s switches set for it, restored after)."""
+    previous = bf16_matmuls()
+    rows = {f"b{TRAIN_BATCH}": time_train_step(trainer, batch, disp_scale,
+                                               "bf16")}
+    trainer = flagship_trainer(SEED, dtype=torch.bfloat16)
+    batch = stereo_batch(BF16_TIMING_BATCH, SEED + 4)
+    b = f"b{BF16_TIMING_BATCH}"
+    rows[b] = time_train_step(trainer, batch, disp_scale, "bf16")
+    rows[b]["breakdown"] = profile_device_time(
+        lambda: trainer.train_step(batch, disp_scale, TRAIN_LR),
+        f"bf16 train step {b}", top=20)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        previous)
+    return rows
 
 
 def warp_rows_work(rows, w, c):
@@ -2134,8 +2553,9 @@ def time_fed_step(home):
     (decoding and augmenting as it goes), the same epoch's batches decoded
     beforehand and held as numpy arrays (so the step still copies them to
     the card), and the same batches already on the card (phase 4's fixed
-    batch).  Then the device's idle share over one epoch of the fed and of
-    the device variant (``device_idle``)."""
+    batch).  Then the device's idle share over one fed epoch
+    (``device_idle``; ``time_train_step`` traces the device batches'
+    step)."""
     from uncertainty_model_tpu_torch.data import DataLoader
 
     trainer = flagship_trainer(SEED + 30)
@@ -2166,13 +2586,10 @@ def time_fed_step(home):
                                for k, v in samples.items()))
     log("  fed epoch:")
     fed_idle = device_idle(lambda: epoch("fed"), calls=1)
-    log("  device-batch epoch:")
-    device_idle_ = device_idle(lambda: epoch("device"), calls=1)
     return {"steps_per_epoch": len(host), "ms_per_step": ms,
             "samples_ms": samples, "fed_images_per_s":
             TRAIN_BATCH / ms["fed"] * 1e3,
-            "fed_device_trace": fed_idle,
-            "device_batch_device_trace": device_idle_}
+            "fed_device_trace": fed_idle}
 
 
 def time_conv_elu():
@@ -2324,11 +2741,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    log("phase 1: build")
+    phase("1: build")
     build_kernels(["assemble_z", "decoder_fused", "gated_conv_elu",
                    "warp_rows", "upsample2x2", "stereo_decode"])
 
-    log("phase 2: kernels vs plain versions")
+    phase("2: kernels vs plain versions")
     worst = check_assemble_z()
     glue_worst = check_decoder_glue()
     conv_worst = check_gated_conv_elu()
@@ -2336,19 +2753,19 @@ def main() -> int:
     conv_elu_worst = check_conv_elu()
     upsample_worst = check_upsample2x2()
 
-    log("phase 3: serving paths")
+    phase("3: serving paths")
     model = flagship_model()
     launches, forward, x8, ref = run_main_path(model, serving_counters)
     s2d_forwards, s2d_launches, s2d_errs = run_s2d_paths(
         model, serving_counters, x8, ref)
     del x8, ref
 
-    log("phase 3b: training path")
+    phase("3b: training path")
     trainer, batch, disp_scale, train_launches = run_training_path(
         train_counters)
-    cpu_check = check_step_against_cpu(disp_scale)
+    cpu_check, cpu_f32_grads = check_step_against_cpu(disp_scale)
 
-    log("phase 3c: evaluation and checkpoints")
+    phase("3c: evaluation and checkpoints")
     all_counters = {**serving_counters, **train_counters}
     eval_model, eval_loader, eval_metrics, eval_launches = run_evaluation(
         all_counters)
@@ -2356,12 +2773,28 @@ def main() -> int:
     train_model_run = run_train_model_with_checkpoints(train_counters,
                                                        eval_loader)
 
-    log("phase 3d: the training CLI fed by the data pipeline")
+    phase("3d: the training CLI fed by the data pipeline")
     tree = tempfile.TemporaryDirectory()
     write_davinci_tree(tree.name, SEED + 28)
     cli_run = run_cli_path(all_counters, tree.name, tree.name)
 
-    log("phase 4: times")
+    phase("3e: bf16 mixed-precision training")
+    previous = bf16_matmuls()
+    bf16_trainer, bf16_batch, _, bf16_launches = run_training_path(
+        all_counters, torch.bfloat16)
+    log("  warp_rows at the bf16 step's shapes: the disparities reach the "
+        "warps in f32, so its groups are the f32 step's, held in phase 2")
+    check_f32_state(bf16_trainer, f"after {TRAIN_STEPS} bf16 steps")
+    bf16_vs_cpu = check_bf16_step_against_cpu(disp_scale, cpu_f32_grads)
+    del cpu_f32_grads
+    bf16_trajectory = check_bf16_trajectory()
+    bf16_cli = run_bf16_cli(all_counters, tree.name,
+                            os.path.join(tree.name, "bf16"))
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        previous)
+    torch.cuda.empty_cache()
+
+    phase("4: times")
     fwd = time_forward(forward)
     s2d_fwd = {key: time_forward(f, f"({key}) {S2D_PATHS[key][0]}")
                for key, f in s2d_forwards.items()}
@@ -2391,6 +2824,8 @@ def main() -> int:
         f"train step b{TRAIN_BATCH}", top=30)
     del trainer, batch
     torch.cuda.empty_cache()
+    bf16_steps = time_bf16_steps(bf16_trainer, bf16_batch, disp_scale)
+    del bf16_trainer, bf16_batch
     eval_time = time_eval_step(eval_model, eval_loader)
     del eval_model, eval_loader
     torch.cuda.empty_cache()
@@ -2410,8 +2845,12 @@ def main() -> int:
                     "se_mean": "the row kernel's last block of each batch "
                                "(no launch of its own)",
                     "breakdown": breakdown, "breakdown_s2d": breakdown_s2d,
-                    "train_step": step,
-                    "train_vs_cpu": cpu_check, "warp_rows_groups": warps,
+                    "train_step": step, "bf16_train_steps": bf16_steps,
+                    "train_vs_cpu": cpu_check,
+                    "bf16": {"launches": bf16_launches,
+                             "vs_cpu": bf16_vs_cpu,
+                             "trajectory": bf16_trajectory, "cli": bf16_cli},
+                    "warp_rows_groups": warps,
                     "warp_rows_shapes": warp_shapes_log,
                     "train_breakdown": step_breakdown,
                     "evaluation": {"metrics": eval_metrics,
@@ -2439,7 +2878,9 @@ def main() -> int:
             "source": "uncertainty_model_tpu_torch/csrc/warp_rows.cu",
             "replaces": f"uncertainty_model_tpu/ops/pallas/warp.py:{line}",
             "launches": train_launches[name],
+            "launches_bf16": bf16_launches[name],
             "launches_cli": cli_run["launches"][name],
+            "launches_cli_bf16": bf16_cli["launches"][name],
             "timed_launches": sum(r["launches_per_step"] for r in warps),
             "timed_unit": f"one training step at batch {TRAIN_BATCH}",
             "max_abs_err": warp_worst[d],
@@ -2474,6 +2915,7 @@ def main() -> int:
         pallas + "upsample.py:109", launches["upsample2x2"], upsample_worst,
         library=True,
         unit=f"one call at each 2x upsample site, batch {TIMING_BATCH}, bf16"))
+    phase("5: the kernels line")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

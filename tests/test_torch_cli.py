@@ -14,9 +14,12 @@ the port's PNG writer.
   weights and Adam state, bit for bit; ``--finetune-from`` loads a
   ``final`` directory or a reference-style ``.pt`` (``module.`` keys);
 - ``--precision float32`` turns TF32 off;
-- ``--precision bfloat16``, ``--adversarial``, ``--data-backend pil``, a
-  ``.pt`` for ``--resume-from``, a JAX (orbax) checkpoint and a missing
-  CUDA device are refused.
+- ``--precision bfloat16`` trains the bf16-compute model: finite
+  ``results.json``, f32 checkpoints, and ``--resume-from epoch_001``
+  equal to the uninterrupted run bit for bit;
+- ``--adversarial``, ``--data-backend pil``, a ``.pt`` for
+  ``--resume-from``, a JAX (orbax) checkpoint and a missing CUDA device
+  are refused.
 """
 
 import contextlib
@@ -229,8 +232,61 @@ def test_finetune_loads_the_weights(recipe, data_home, tmp_path, source):
                               for k in parameters)
 
 
+def test_bf16_trains_checkpoints_and_resumes(data_home, tmp_path):
+    """``--precision bfloat16``: two epochs with an evaluation and a
+    checkpoint each, finite losses and metrics in ``results.json``,
+    checkpoints of f32 parameters, statistics and Adam state; then
+    ``--resume-from epoch_001`` ends with the uninterrupted run's
+    ``final`` bit for bit."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    try:
+        _check_bf16_run(data_home, tmp_path)
+        assert not (torch.backends.cuda.matmul
+                    .allow_bf16_reduced_precision_reduction)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            saved)
+
+
+def _check_bf16_run(data_home, tmp_path):
+    args, printed, run = _run(_argv(data_home, str(tmp_path / "full"),
+                                    "--precision", "bfloat16"))
+    assert "Training completed." in printed
+    model_dir = os.path.join(args.save_model_to, run)
+    assert sorted(os.listdir(model_dir)) == ["epoch_001", "epoch_002", "final"]
+    with open(os.path.join(args.save_results_to, run, "results.json")) as f:
+        results = json.load(f)
+    assert results["arguments"]["precision"] == "bfloat16"
+    losses = results["losses"]
+    values = (losses["training"]["disparity"]
+              + losses["training"]["uncertainty"]
+              + losses["validation"]["ssim"]["left"]
+              + losses["validation"]["ssim"]["right"]
+              + losses["validation"]["sparsification"]["ause"]
+              + losses["validation"]["sparsification"]["aurg"])
+    assert len(values) == 12 and np.isfinite(values).all()
+    final = os.path.join(model_dir, "final")
+    weights = _load(os.path.join(final, "model.pt"))
+    state = _load(os.path.join(final, "train_state.pt"))["optimizer"]["state"]
+    assert all(v.dtype == torch.float32 for k, v in weights.items()
+               if "num_batches_tracked" not in k)
+    assert all(m[k].dtype == torch.float32 for m in state.values()
+               for k in ("exp_avg", "exp_avg_sq"))
+
+    _, printed, r_run = _run(_argv(
+        data_home, str(tmp_path / "resumed"), "--precision", "bfloat16",
+        "--resume-from", os.path.join(model_dir, "epoch_001")))
+    assert "Epoch #1:" not in printed and "Epoch #2:" in printed
+    resumed = tmp_path / "resumed" / "trained" / r_run / "final"
+    got = _load(resumed / "model.pt")
+    assert got.keys() == weights.keys()
+    assert all(torch.equal(weights[k], got[k]) for k in weights)
+    got = _load(resumed / "train_state.pt")["optimizer"]["state"]
+    assert all(torch.equal(state[i][k], got[i][k]) for i in state
+               for k in ("step", "exp_avg", "exp_avg_sq"))
+
+
 @pytest.mark.parametrize("extra,error,message", [
-    (["--precision", "bfloat16"], NotImplementedError, "Queue 1 item 4"),
     (["--adversarial"], NotImplementedError, "Queue 1 item 5"),
     (["--data-backend", "pil"], ValueError, "no PIL path"),
 ])

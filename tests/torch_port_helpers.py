@@ -72,9 +72,10 @@ def to_nhwc_numpy(x: torch.Tensor) -> np.ndarray:
     return x.permute(0, 2, 3, 1).float().numpy()
 
 
-def port_model(cfg, variables):
-    """The port's eval model on the CPU, loaded from JAX variables."""
-    model = RandomlyConnectedModel(**cfg)
+def port_model(cfg, variables, dtype=None):
+    """The port's eval model on the CPU, loaded from JAX variables, with
+    compute type ``dtype``."""
+    model = RandomlyConnectedModel(**cfg, dtype=dtype)
     model.load_state_dict(from_jax_variables(variables), strict=True)
     return model.to(memory_format=torch.channels_last).eval()
 

@@ -13,13 +13,25 @@ main.py)::
 The JAX CLI's flags and defaults, so ``results.json`` has the same
 ``arguments`` keys and the same schema.  It runs on CUDA unless
 ``--platform cpu`` is given, in one process (the loader's
-``shard_index=0, num_shards=1``).  ``--precision float32`` (the default)
-turns TF32 off for cuDNN and matmuls.  Not ported yet, and refused:
-``--precision bfloat16`` (ROADMAP Queue 1 item 4), ``--adversarial``
-(item 5), ``--data-backend pil`` (the port decodes with its own PNG
-decoder), and JAX (orbax) checkpoints for ``--resume-from`` /
-``--finetune-from``, which read the port's checkpoint directories
-(``train/checkpoint.py``) or reference ``.pt`` files.
+``shard_index=0, num_shards=1``).
+
+``--precision float32`` (the default) turns TF32 off for cuDNN and
+matmuls.  ``--precision bfloat16`` is the JAX CLI's mixed precision: the
+model computes in bf16 (``RandomlyConnectedModel.from_config(dtype=
+torch.bfloat16)``), while the parameters, BatchNorm statistics, Adam state
+and losses stay f32.  TF32 is off there too, so the f32 products outside
+the modules (the losses, Adam) are full f32, and cuBLAS sums bf16 products
+in f32 (``allow_bf16_reduced_precision_reduction`` off), as XLA does.  The
+JAX CLI also sets ``jax_default_matmul_precision="bfloat16"``, which does
+not change an f32 product on the CPU (a 64x256x64 f32 ``jnp.dot`` is the
+same with and without it), so on the CPU the two CLIs compute the same
+products.
+
+Not ported yet, and refused: ``--adversarial`` (ROADMAP Queue 1 item 5),
+``--data-backend pil`` (the port decodes with its own PNG decoder), and
+JAX (orbax) checkpoints for ``--resume-from`` / ``--finetune-from``, which
+read the port's checkpoint directories (``train/checkpoint.py``) or
+reference ``.pt`` files.
 """
 
 from __future__ import annotations
@@ -72,8 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "smoke tests).")
     parser.add_argument("--precision", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="float32; bfloat16 is not ported yet (ROADMAP "
-                             "Queue 1 item 4).")
+                        help="Module compute precision: bfloat16 is mixed "
+                             "precision (f32 parameters, Adam and losses).")
     parser.add_argument("--data-backend", default="auto",
                         choices=["auto", "native", "pil"],
                         help="auto and native: the port's PNG decoder "
@@ -85,10 +97,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.precision == "bfloat16":
-        raise NotImplementedError(
-            "--precision bfloat16: bf16 mixed-precision training is not "
-            "ported yet (ROADMAP Queue 1 item 4)")
     if args.adversarial:
         raise NotImplementedError(
             "--adversarial: the discriminator and the adversarial losses "
@@ -97,15 +105,19 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         raise SystemExit("--resume-from and --finetune-from are exclusive")
 
 
-def _fix_precision(precision: str) -> None:
-    """``float32``: f32 convolutions and matmuls.  PyTorch runs cuDNN's
-    convolutions in TF32 unless told otherwise, so both switches are set
-    here rather than left to the process."""
+def _fix_precision(precision: str):
+    """The model's compute type for ``precision`` (None: f32).  f32
+    convolutions and matmuls are full f32 in both: PyTorch runs cuDNN's
+    convolutions in TF32 unless told otherwise, so the switches are set
+    here rather than left to the process; bf16 matmuls sum in f32."""
     import torch
 
-    assert precision == "float32", precision
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if precision == "float32":
+        return None
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.bfloat16
 
 
 def _restore(args: argparse.Namespace, trainer) -> int:
@@ -154,7 +166,7 @@ def main(args: argparse.Namespace) -> None:
 
     _refuse_unported(args)
     device = resolve_device(args.platform)
-    _fix_precision(args.precision)
+    dtype = _fix_precision(args.precision)
 
     print("Arguments passed:")
     for key, value in vars(args).items():
@@ -192,7 +204,7 @@ def main(args: argparse.Namespace) -> None:
                             num_workers=args.workers, drop_last=False,
                             backend=args.data_backend)
 
-    model = RandomlyConnectedModel.from_config(**config["model"],
+    model = RandomlyConnectedModel.from_config(**config["model"], dtype=dtype,
                                                seed=args.seed, device=device)
     trainer = Trainer(model, config["loss"], device=device)
     start_epoch = _restore(args, trainer)

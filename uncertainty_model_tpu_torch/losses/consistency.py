@@ -8,9 +8,17 @@ import torch
 from ..ops import warp_by_disparities
 
 
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """``|x|`` with ``jnp.abs``'s gradient: +1 where ``x >= 0``, -1
+    elsewhere (``torch.abs`` has 0 at 0).  The two differ only where ``x``
+    is 0 exactly, which bf16 disparities reach often: neighbouring pixels
+    and the two views' maps tie."""
+    return torch.where(x >= 0, x, -x)
+
+
 def l1_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Mean absolute error (reference train/utils.py:22-24)."""
-    return (x - y).abs().mean()
+    return absolute(x - y).mean()
 
 
 def consistency_loss(warp_field: torch.Tensor,

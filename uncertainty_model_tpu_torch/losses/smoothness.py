@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import pad2d
+from .consistency import absolute
 
 
 def gradient_x(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +30,7 @@ def smoothness_error(disparity: torch.Tensor,
     """Per-pixel edge-weighted |grad disparity| (loss.py:226-246)."""
     smooth_x = gradient_x(disparity) * _weights(gradient_x(image))
     smooth_y = gradient_y(disparity) * _weights(gradient_y(image))
-    return smooth_x.abs() + smooth_y.abs()
+    return absolute(smooth_x) + absolute(smooth_y)
 
 
 def smoothness_loss(disp: torch.Tensor, images: torch.Tensor) -> torch.Tensor:

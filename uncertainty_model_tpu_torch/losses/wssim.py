@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import avg_pool2d, resize_bilinear
+from .consistency import absolute
 
 _K1 = 0.01 ** 2
 _K2 = 0.03 ** 2
@@ -25,7 +26,7 @@ def wssim_image_error(images: torch.Tensor, recon: torch.Tensor,
     from one stacked 30-channel pool.  The (H-2, W-2) SSIM map is resized
     back to (H, W) by the align-corners resize."""
     h, w = images.shape[1], images.shape[2]
-    l1_error = (images - recon).abs()
+    l1_error = absolute(images - recon)
 
     x, y = images, recon
     pooled = avg_pool2d(torch.cat([x, y, x * x, y * y, x * y], dim=-1), 3)

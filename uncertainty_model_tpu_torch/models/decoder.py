@@ -8,22 +8,31 @@ has 4 channels [left_disp, right_disp, left_unc, right_unc].
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import torch
 from torch import nn
 
 from .layers import DecoderStage
 
 
 class DepthDecoder(nn.Module):
-    def __init__(self, layers: Sequence[dict]):
+    """``dtype``: the stages' compute type, to which the left image is cast
+    (JAX decoder.py:147-148)."""
+
+    def __init__(self, layers: Sequence[dict],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if len(layers) != 5:
             raise ValueError(f"the decoder has 5 stages, not {len(layers)}")
-        self.layers = nn.ModuleList(DecoderStage(**cfg) for cfg in layers)
+        self.dtype = dtype
+        self.layers = nn.ModuleList(DecoderStage(**cfg, dtype=dtype)
+                                    for cfg in layers)
 
     def forward(self, left_image, *feature_maps, disp_scale=1.0):
         """Returns (full, 1/2, 1/4, 1/8)-resolution disparity maps."""
+        if self.dtype is not None:
+            left_image = left_image.to(self.dtype)
         f1, f2, f3, f4, x4 = feature_maps
         s = self.layers
         out5, skip5, _ = s[0](x4, f4, x4, disp_scale=disp_scale)

@@ -5,8 +5,15 @@ Modules take logical NCHW tensors (``torch.channels_last`` memory in the
 port); the NHWC ops of ``..ops`` see the free ``permute(0, 2, 3, 1)`` view.
 Module and parameter names follow the reference PyTorch ``state_dict``
 (documented by the JAX package's ``train/convert.py``), so reference
-checkpoints load as they are.  Only eval-mode semantics are pinned against
-the JAX package.
+checkpoints load as they are.
+
+``dtype`` follows flax's: ``None`` computes in f32, ``torch.bfloat16`` is
+mixed precision.  Parameters and BatchNorm statistics stay f32 either way;
+each module casts its inputs, kernels and biases to ``dtype`` where the
+JAX layer casts them, and rounds where it rounds: a conv's bias is added
+after the conv's output is rounded (XLA's ``conv + bias``), BatchNorm
+normalises with three bf16 roundings, the attention softmax and the SE
+squeeze reduce in f32.  ``torch.autocast`` would round elsewhere.
 """
 
 from __future__ import annotations
@@ -32,16 +39,68 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 def reflect_conv(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
+                 bias: torch.Tensor | None) -> torch.Tensor:
     """Reflect(1)-padded 3x3 conv, with numpy's reflect rule (see
     ``ops/pad.py``: ``padding_mode="reflect"`` refuses 1-pixel maps)."""
     return F.conv2d(nchw(reflect_pad2d(nhwc(x), (1, 1, 1, 1))), weight, bias)
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``t`` in ``dtype`` (``None``: as it is), as flax casts to a module's
+    ``dtype``."""
+    return t if dtype is None else t.to(dtype)
+
+
+def biased_conv(conv_fn, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, dtype: torch.dtype | None
+                ) -> torch.Tensor:
+    """``conv_fn(x, weight, bias)``.  With a ``dtype``, the input, kernel
+    and bias are cast to it and the bias is added after the conv's output
+    is rounded, as the JAX layers compute ``conv(x, k) + b`` (a conv given
+    the bias folds it into the f32 sum and rounds once)."""
+    if dtype is None:
+        return conv_fn(x, weight, bias)
+    return (conv_fn(x.to(dtype), weight.to(dtype), None)
+            + bias.to(dtype)[:, None, None])
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor,
+           dtype: torch.dtype | None) -> torch.Tensor:
+    """``conv(x)`` in ``dtype``: flax ``nn.Conv(dtype=...)``; the module's
+    own call in f32."""
+    if dtype is None:
+        return conv(x)
+    def fn(x, w, b):
+        return F.conv2d(x, w, b, conv.stride, conv.padding)
+    return biased_conv(fn, x, conv.weight, conv.bias, dtype)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))``, each operation rounded in
+    ``x``'s type; f32 as ``torch.sigmoid``, which rounds once."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
 
 
 def softmax_f32(v: torch.Tensor, dim: int) -> torch.Tensor:
     """Softmax with the max subtracted and the sum taken in f32, returned
     in ``v``'s type."""
     return torch.softmax(v, dim, dtype=torch.float32).to(v.dtype)
+
+
+def attention_softmax(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """The JAX package's ``EfficientAttention`` softmax (layers.py:320-326):
+    f32 as ``torch.softmax``; otherwise ``exp(v - max)`` in ``v``'s type,
+    the sum in f32 and ``e * (1 / sum)`` in ``v``'s type.  The JAX layer
+    takes the max in f32 and casts it back: the max of ``v``'s values is
+    one of them, so ``v.amax`` is the same number without the f32 copy."""
+    if v.dtype == torch.float32:
+        return torch.softmax(v, dim)
+    m = v.amax(dim, keepdim=True)
+    e = torch.exp(v - m)
+    s = e.sum(dim, keepdim=True, dtype=torch.float32)
+    return e * (1.0 / s).to(v.dtype)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -70,22 +129,63 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 # ---------------------------------------------------------------------------
 
 
+class TorchBatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (momentum 0.1: the JAX package's flax momentum
+    0.9, with Bessel's factor on the accumulated variance) with the JAX
+    package's ``TorchBatchNorm`` mixed precision (layers.py:83-109).
+
+    ``dtype=None``: ``F.batch_norm`` in f32.  With a ``dtype``, the
+    statistics come from ``x`` in f32 and the running statistics update in
+    f32; the output is ``(x - mean) * inv + bias`` in ``dtype`` with
+    ``inv = rsqrt(var + eps) * weight``, each operand cast to ``dtype``:
+    three roundings where ``F.batch_norm`` rounds once.  The parameters,
+    buffers and their names are ``nn.BatchNorm2d``'s, in f32."""
+
+    def __init__(self, num_features: int, dtype: torch.dtype | None = None):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        if dt is None:
+            return super().forward(x)
+        if self.training:
+            dims = (0, 2, 3)
+            xf = x.float()
+            mean = xf.mean(dims)
+            var = (xf - mean[:, None, None]).square().mean(dims)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(
+                    var * (n / (n - 1) if n > 1 else 1.0), alpha=m)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = (torch.rsqrt(var + self.eps) * self.weight).to(dt)
+        return ((x.to(dt) - mean.to(dt)[:, None, None]) * inv[:, None, None]
+                + self.bias.to(dt)[:, None, None])
+
+
 class ConvBNELU(nn.Module):
     """Zero-pad conv -> BatchNorm -> ELU (reference model/layers/
     encoder.py:21-52, ``ConvELUBlock``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1):
+                 stride: int = 1, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.layers = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                       padding=(kernel_size - 1) // 2),
-            nn.BatchNorm2d(out_channels, eps=BN_EPS, momentum=0.1),
+            TorchBatchNorm(out_channels, dtype),
             nn.ELU(),
         )
 
     def forward(self, x):
-        return self.layers(x)
+        conv, bn, elu = self.layers
+        return elu(bn(conv2d(conv, x, self.dtype)))
 
 
 def _resize_reflect(x, target_h, target_w):
@@ -108,7 +208,7 @@ class NodeBlock(nn.Module):
     """
 
     def __init__(self, node: Node, in_channels: int, out_channels: int,
-                 kernel_size: int):
+                 kernel_size: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.n_inputs = len(node.inputs)
         if self.n_inputs > 1:
@@ -116,10 +216,11 @@ class NodeBlock(nn.Module):
         is_input = node.node_type == "input"
         self.convolution = ConvBNELU(
             in_channels if is_input else out_channels, out_channels,
-            kernel_size, stride=2 if is_input else 1)
+            kernel_size, stride=2 if is_input else 1, dtype=dtype)
 
     def forward(self, *inputs):
         if self.n_inputs > 1:
+            # the sigmoid in f32, the gates in the inputs' type
             gates = torch.sigmoid(self.mean_weight).to(inputs[0].dtype)
             out = gates[0] * inputs[0]
             for i, x in enumerate(inputs[1:]):
@@ -135,11 +236,11 @@ class GraphBlock(nn.Module):
     """Runs the DAG of NodeBlocks (reference model/layers/encoder.py:130-198)."""
 
     def __init__(self, graph: GraphSpec, in_channels: int, out_channels: int,
-                 kernel_size: int):
+                 kernel_size: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.graph = graph
         self.node_blocks = nn.ModuleList(
-            NodeBlock(node, in_channels, out_channels, kernel_size)
+            NodeBlock(node, in_channels, out_channels, kernel_size, dtype)
             for node in graph.nodes)
 
     def forward(self, x):
@@ -166,9 +267,11 @@ class EfficientAttention(nn.Module):
     tokens and over the queries' channels, then a (ck x cv) context."""
 
     def __init__(self, in_channels: int, key_channels: int,
-                 value_channels: int, head_count: int):
+                 value_channels: int, head_count: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.head_count = head_count
+        self.dtype = dtype
         self.keys = nn.Conv2d(in_channels, key_channels, 1)
         self.queries = nn.Conv2d(in_channels, key_channels, 1)
         self.values = nn.Conv2d(in_channels, value_channels, 1)
@@ -179,15 +282,16 @@ class EfficientAttention(nn.Module):
         heads = self.head_count
 
         def proj(conv):
-            return nhwc(conv(x)).reshape(b, h * w, heads, -1)
+            return nhwc(conv2d(conv, x, self.dtype)).reshape(b, h * w, heads,
+                                                             -1)
 
-        keys = softmax_f32(proj(self.keys), 1)         # over tokens
-        queries = softmax_f32(proj(self.queries), -1)  # over head channels
+        keys = attention_softmax(proj(self.keys), 1)         # over tokens
+        queries = attention_softmax(proj(self.queries), -1)  # head channels
         values = proj(self.values)
         context = torch.einsum("bnhk,bnhv->bhkv", keys, values)
         attended = torch.einsum("bhkv,bnhk->bnhv", context, queries)
         attended = nchw(attended.reshape(b, h, w, -1))
-        return self.reprojection(attended) + x
+        return conv2d(self.reprojection, attended, self.dtype) + x
 
 
 class EncoderStage(nn.Module):
@@ -195,11 +299,13 @@ class EncoderStage(nn.Module):
     encoder.py:201-262)."""
 
     def __init__(self, graph: GraphSpec, in_channels: int, out_channels: int,
-                 kernel_size: int, heads: int = 8):
+                 kernel_size: int, heads: int = 8,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.layers = nn.Sequential(
-            GraphBlock(graph, in_channels, out_channels, kernel_size),
-            EfficientAttention(out_channels, out_channels, out_channels, heads),
+            GraphBlock(graph, in_channels, out_channels, kernel_size, dtype),
+            EfficientAttention(out_channels, out_channels, out_channels, heads,
+                               dtype),
         )
 
     def forward(self, x):
@@ -213,22 +319,37 @@ class EncoderStage(nn.Module):
 
 class ConvLayer(nn.Module):
     """Reflect-pad(1) or unpadded conv -> optional sigmoid (reference
-    model/layers/decoder.py:11-52)."""
+    model/layers/decoder.py:11-52).
+
+    An unpadded 1x1 conv takes a tuple of inputs, as the JAX layer does
+    (layers.py:476-486): each input meets its slice of the kernel, and the
+    partial convs and the bias are summed, so the concat is never built."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, padding: bool = True,
-                 sigmoid: bool = False):
+                 sigmoid: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         self.padding = padding
         self.sigmoid = sigmoid
+        self.dtype = dtype
         self.layers = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, kernel_size))
 
     def forward(self, x):
-        conv = self.layers[0]
-        x = (reflect_conv(x, conv.weight, conv.bias) if self.padding
-             else conv(x))
-        return torch.sigmoid(x) if self.sigmoid else x
+        conv, dt = self.layers[0], self.dtype
+        if isinstance(x, tuple):
+            w, i = cast(conv.weight, dt), 0
+            out = None
+            for p in x:
+                c = p.shape[1]
+                y = F.conv2d(cast(p, dt), w[:, i:i + c])
+                out, i = (y if out is None else out + y), i + c
+            x = out + cast(conv.bias, dt)[:, None, None]
+        elif self.padding:
+            x = biased_conv(reflect_conv, x, conv.weight, conv.bias, dt)
+        else:
+            x = conv2d(conv, x, dt)
+        return sigmoid(x) if self.sigmoid else x
 
 
 class DecoderConvELU(nn.Module):
@@ -237,12 +358,12 @@ class DecoderConvELU(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, padding: bool = True,
-                 batch_norm: bool = False):
+                 batch_norm: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
-        layers = [ConvLayer(in_channels, out_channels, kernel_size, padding)]
+        layers = [ConvLayer(in_channels, out_channels, kernel_size, padding,
+                            dtype=dtype)]
         if batch_norm:
-            layers.append(nn.BatchNorm2d(out_channels, eps=BN_EPS,
-                                         momentum=0.1))
+            layers.append(TorchBatchNorm(out_channels, dtype))
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x):
@@ -251,12 +372,15 @@ class DecoderConvELU(nn.Module):
 
 class SELayer(nn.Module):
     """Squeeze-excitation (reference model/layers/decoder.py:90-136): two
-    bias-free linear layers (``fc=True``) or two 1x1 convs with bias."""
+    bias-free linear layers (``fc=True``) or two 1x1 convs with bias.  The
+    mean is reduced in f32 and cast to the input's type."""
 
-    def __init__(self, channels: int, reduction: int = 16, fc: bool = True):
+    def __init__(self, channels: int, reduction: int = 16, fc: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         reduced = channels // reduction
         self.fc = fc
+        self.dtype = dtype
         if fc:
             self.excite = nn.Sequential(
                 nn.Linear(channels, reduced, bias=False), nn.ReLU(),
@@ -268,11 +392,18 @@ class SELayer(nn.Module):
 
     def forward(self, x):
         squeezed = x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype)
+        first, relu, second, _ = self.excite
         if self.fc:
-            s = self.excite(squeezed)
+            def excite(m, s):
+                return F.linear(cast(s, self.dtype),
+                                cast(m.weight, self.dtype))
+            s = squeezed
         else:
-            s = self.excite(squeezed[:, :, None, None])[:, :, 0, 0]
-        return x * s[:, :, None, None]
+            def excite(m, s):
+                return conv2d(m, s, self.dtype)
+            s = squeezed[:, :, None, None]
+        s = sigmoid(excite(second, relu(excite(first, s))))
+        return x * s.reshape(s.shape[0], -1, 1, 1)
 
 
 class DecoderStage(nn.Module):
@@ -285,7 +416,8 @@ class DecoderStage(nn.Module):
                  out_channels: int, skip_out_channels: int,
                  disp_channels: int = 2, batch_norm: bool = True,
                  fc: bool = True, scale: int = 2, concat_disp: bool = True,
-                 calculate_disp: bool = True):
+                 calculate_disp: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.feature_in_channels = feature_in_channels
         self.upsample_channels = upsample_channels
@@ -296,36 +428,43 @@ class DecoderStage(nn.Module):
         r = scale
         self.upsample = nn.Sequential(
             DecoderConvELU(in_channels, upsample_channels * r * r,
-                           batch_norm=batch_norm),
+                           batch_norm=batch_norm, dtype=dtype),
             nn.PixelShuffle(r))
         self.squeeze_excite = nn.Sequential(
             DecoderConvELU(feature_in_channels + skip_in_channels,
                            skip_out_channels, kernel_size=1, padding=False,
-                           batch_norm=True),
-            SELayer(skip_out_channels, fc=fc))
+                           batch_norm=True, dtype=dtype),
+            SELayer(skip_out_channels, fc=fc, dtype=dtype))
         iconv_in = (upsample_channels + skip_out_channels
                     + (disp_channels if concat_disp else 0))
         self.iconv = DecoderConvELU(iconv_in, out_channels,
-                                    batch_norm=batch_norm)
+                                    batch_norm=batch_norm, dtype=dtype)
         if calculate_disp:
-            self.disp = ConvLayer(out_channels, disp_channels, sigmoid=True)
+            self.disp = ConvLayer(out_channels, disp_channels, sigmoid=True,
+                                  dtype=dtype)
 
     def forward(self, x, feature_map, skip, disparity=None, disp_scale=1.0):
+        """``disp_scale``: a float, applied in f32 (the JAX step and
+        evaluation pass it as ``jnp.float32``) before the disparity is cast
+        back to ``x``'s type."""
         r = self.scale
         h, w = skip.shape[2] * r, skip.shape[3] * r
         skip = nchw(resize_bilinear(nhwc(skip), (h, w)))
-        skip = self.squeeze_excite(torch.cat([feature_map, skip], dim=1))
+        # a tuple: the 1x1 conv splits its kernel per input
+        skip = self.squeeze_excite((feature_map, skip))
         parts = [self.upsample(x), skip]
         if self.concat_disp:
             dh, dw = disparity.shape[2] * r, disparity.shape[3] * r
             parts.append(nchw(resize_bilinear(nhwc(disparity), (dh, dw))))
         out = self.iconv(torch.cat(parts, dim=1))
-        disp = disp_scale * self.disp(out) if self.calculate_disp else None
+        disp = None
+        if self.calculate_disp:
+            disp = (disp_scale * self.disp(out).float()).to(x.dtype)
         return out, skip, disp
 
 
 __all__ = [
-    "ConvBNELU", "NodeBlock", "GraphBlock", "EfficientAttention",
-    "EncoderStage", "ConvLayer", "DecoderConvELU", "SELayer", "DecoderStage",
-    "init_parameters",
+    "TorchBatchNorm", "ConvBNELU", "NodeBlock", "GraphBlock",
+    "EfficientAttention", "EncoderStage", "ConvLayer", "DecoderConvELU",
+    "SELayer", "DecoderStage", "init_parameters",
 ]

@@ -15,7 +15,8 @@ JAX package names its own, holding two files:
 (``--resume-from``), or the weights alone with a fresh optimizer
 (``--finetune-from``, the reference's semantics).
 ``load_torch_checkpoint`` reads a reference ``.pt`` file, which holds
-weights only.
+weights only.  A model that computes in bf16 holds f32 parameters, so its
+checkpoints are f32 and load into a model of either compute type.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ Per batch: the full-resolution eval-mode forward, the stereo
 reconstructions by warp (one ``warp_rows`` launch on CUDA), gaussian SSIM
 (k=11, sum-reduced), the WSSIM(alpha=1) image error, and the
 sparsification curves -> AUSE/AURG, all on the model's device; the running
-averages and the first batch's comparison PNGs live on the host.
+averages and the first batch's comparison PNGs live on the host.  A bf16
+model's prediction is cast to f32 for the metrics, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -11,6 +11,12 @@ and an Adam update.  Adam is
 set each step: the same update as the JAX package's
 ``optax.scale_by_adam`` times ``-lr`` (eps after the bias-corrected square
 root).
+
+A model built with ``dtype=torch.bfloat16`` trains in the JAX package's
+mixed precision: its modules compute in bf16 while the parameters, their
+gradients (each cast back to f32 where a module cast its weight), the
+BatchNorm statistics and Adam stay f32; the disparities reach the warps
+and the losses in f32.
 """
 
 from __future__ import annotations
