@@ -67,11 +67,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    the CLI with ``--precision bfloat16`` for one epoch on phase 3d's tree
    (launches per step and evaluation batch, outputs, ``final`` f32 and
    reloaded exactly);
+3f. run adversarial training in f32: the flagship with its discriminator
+   (``configs/uncertainty.yml``, 7,625,230 parameters) through
+   ``train_one_epoch`` for 6 steps at batch 8, the perceptual term live
+   from step 3 and the lagged clone refreshed every 2 steps (5 + 5
+   ``warp_rows`` launches a step and no other kernel: the discriminator
+   is cuDNN's convs and its step's reconstructions are detached; the
+   clone refreshed just when due; the loss without its adversarial terms
+   must fall; every state tensor f32 on the card); a batch-2 step on the
+   card against the CPU's (the three losses, the whole step's model and
+   discriminator gradients by their medians, and on the CPU's own
+   pyramids the discriminator step's gradient per parameter and the
+   clone's gradient in the reconstructions); the CLI with
+   ``--adversarial`` for one epoch on phase 3d's tree (launches,
+   ``results.json``'s discriminator list, ``final`` reloaded exactly),
+   then resumed from ``epoch_001``;
 4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
    and (a) with ``s2d_conv_backend="lax"``), the training step and the
    eval step at batch 8 (each with the device's idle share), the bf16
    training step at batch 8 and 32 (with its device-busy time, idle
-   share and peak memory), and each
+   share and peak memory), the adversarial f32 step at batch 8 (the same,
+   with its device time by operator and the discriminator's share of the
+   device's busy time), and each
    kernel against its plain version, its bound and the PyTorch call that
    computes the same function (``warp_rows`` per launch of a training
    step's groups, and per one-problem call at each shape as a log; CUDA
@@ -157,6 +174,27 @@ BF16_SE_ALONE_REL = 1e-3       # an SE layer's gradients, card vs alone on the C
 BF16_WHOLE_STEP_MEDIAN = 1.0
 BF16_TRAJECTORY_REL = 0.05     # bf16 vs f32 loss per step (the JAX bound)
 BF16_TRAJECTORY_LR = 1e-3      # tests/test_mixed_precision.py's
+# the adversarial step (phase 3f): the perceptual term from batch
+# ADV_PERCEPTUAL_START of the epoch on and the clone refreshed every
+# ADV_UPDATE_FREQ batches, so that both happen within TRAIN_STEPS steps
+# (the config's 5 and the CLI's 10 would not)
+ADV_PERCEPTUAL_START = 3
+ADV_UPDATE_FREQ = 2
+FLAGSHIP_DISC_PARAMS = 7_625_230   # jax.eval_shape of the JAX module's init
+# card vs CPU (readings on an NVIDIA H100 80GB HBM3), link by link on the
+# same (CPU-computed) pyramids: the discriminator's loss within
+# DISC_LOSS_RTOL (read: 1.4e-6; the whole step's loss moves ~60x that with
+# the reconstructions' rounding); the discriminator step's gradient per
+# parameter within max(DISC_GRAD_REL |g|, DISC_GRAD_FLOOR max |g|), the
+# model backward's relative limit (read: the four 5x5 convs of stage 1 at
+# 2.0e-3, every other parameter below 2e-5; the conv biases ahead of
+# train-mode BatchNorm have a gradient of 0 but for rounding, hence a
+# floor relative to the largest); the clone's dL/d(recon) per scale
+# within LAG_GRAD_REL of its norm (read: 7.7e-6); the whole step's model
+# and discriminator gradients by their medians
+DISC_LOSS_RTOL = 1e-5
+DISC_GRAD_REL, DISC_GRAD_FLOOR = GRAD_REL, 1e-5
+LAG_GRAD_REL = 1e-4
 DSRC_TOL = 1e-5     # warp_rows dsrc: 1e-5 * (1 + sum of the terms' |.|)
 CONV_F32_TOL = 1e-5     # gated_conv_elu f32: 1e-5 * (1 + sum of the terms' |.|)
 WARP_LIBRARY_TOL = 1e-2   # grid_sample vs the kernel (x -> grid rounding)
@@ -1305,11 +1343,12 @@ def check_cli_launches(launches, steps, evals, epochs):
         f"{[b for b, _ in evals]}), {launches} in all")
 
 
-def check_cli_outputs(args, run, epochs, first=1):
+def check_cli_outputs(args, run, epochs, first=1, adversarial=False):
     """Checkpoints (``model.pt`` and ``train_state.pt`` in each of
     ``epoch_NNN`` and ``final``), comparison PNGs, and ``results.json``:
     the JAX package's schema, finite losses and metrics, one entry for
-    each of the ``epochs`` epochs the run ran, from epoch ``first``."""
+    each of the ``epochs`` epochs the run ran, from epoch ``first`` (the
+    discriminator's too where ``adversarial``, else None)."""
     import os
 
     from uncertainty_model_tpu_torch.config import load_config
@@ -1349,12 +1388,16 @@ def check_cli_outputs(args, run, epochs, first=1):
               validation["ssim"]["left"], validation["ssim"]["right"],
               validation["sparsification"]["ause"],
               validation["sparsification"]["aurg"]]
-    if training["discriminator"] is not None or any(
-            len(v) != epochs or not np.isfinite(v).all() for v in values):
+    if adversarial:
+        values.append(training["discriminator"])
+    elif training["discriminator"] is not None:
+        fail(f"results.json losses {results['losses']}")
+    if any(len(v) != epochs or not np.isfinite(v).all() for v in values):
         fail(f"results.json losses {results['losses']}")
     log(f"  outputs: checkpoints {names + ['final']}, comparison PNGs, "
         f"results.json with the JAX schema; losses {training['disparity']}, "
-        f"{training['uncertainty']}; ssim {validation['ssim']}; "
+        f"{training['uncertainty']}, {training['discriminator']}; ssim "
+        f"{validation['ssim']}; "
         f"sparsification {validation['sparsification']}")
     return results
 
@@ -1421,22 +1464,32 @@ def bf16_matmuls():
 
 
 def check_f32_state(trainer, label):
-    """Parameters, their gradients, BatchNorm statistics and Adam's moments
-    are f32 after bf16 steps."""
-    model = trainer.model
-    bad = [n for n, p in model.named_parameters()
-           if p.dtype != torch.float32
-           or (p.grad is not None and p.grad.dtype != torch.float32)]
-    bad += [n for n, b in model.named_buffers()
-            if b.is_floating_point() and b.dtype != torch.float32]
-    state = trainer.optimizer.state_dict()["state"]
-    bad += [f"adam {i} {k}" for i, m in state.items()
-            for k in ("exp_avg", "exp_avg_sq") if m[k].dtype != torch.float32]
-    if bad or len(state) != len(list(model.parameters())):
-        fail(f"{label}: not f32 or no Adam state: {bad[:5]}")
-    log(f"  {label}: {len(list(model.parameters()))} parameters, their "
-        f"gradients, the BatchNorm statistics and {len(state)} Adam states "
-        "are f32")
+    """Every parameter, gradient, floating buffer and Adam state of the
+    model, and of the discriminator and its clone where the trainer has
+    them, is f32 and on the card (after bf16 or adversarial steps)."""
+    modules = [("model", trainer.model, trainer.optimizer)]
+    if trainer.disc is not None:
+        modules += [("disc", trainer.disc, trainer.disc_optimizer),
+                    ("lag", trainer.disc_lag, None)]
+    bad = []
+    for name, module, opt in modules:
+        for n, t in [*module.named_parameters(), *module.named_buffers()]:
+            for x in (t, t.grad):
+                if x is not None and x.is_floating_point() and (
+                        x.dtype != torch.float32 or x.device.type != "cuda"):
+                    bad.append(f"{name}.{n}")
+        if opt is None:
+            continue
+        state = opt.state_dict()["state"]
+        bad += [f"{name} adam {i} {k}" for i, m in state.items()
+                for k in ("exp_avg", "exp_avg_sq")
+                if m[k].dtype != torch.float32 or m[k].device.type != "cuda"]
+        if len(state) != len(list(module.parameters())):
+            bad.append(f"{name}: {len(state)} Adam states")
+    if bad:
+        fail(f"{label}: not f32 on the card, or no Adam state: {bad[:5]}")
+    log(f"  {label}: the parameters, gradients, buffers and Adam states of "
+        + ", ".join(name for name, _, _ in modules) + " are f32 on the card")
 
 
 def rel(a, b):
@@ -1719,6 +1772,318 @@ def run_bf16_cli(counters, home, out):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: adversarial training
+# ---------------------------------------------------------------------------
+
+
+def adversarial_trainer(seed, device="cuda"):
+    """The flagship and its discriminator (``configs/uncertainty.yml``,
+    7,625,230 parameters) from ``seed`` in f32, the loss with
+    ``perceptual_start`` ``ADV_PERCEPTUAL_START``, the clone refreshed
+    every ``ADV_UPDATE_FREQ`` batches."""
+    from uncertainty_model_tpu_torch.config import (
+        FLAGSHIP_DISCRIMINATOR, FLAGSHIP_LOSS, FLAGSHIP_MODEL)
+    from uncertainty_model_tpu_torch.models import (
+        RandomDiscriminator, RandomlyConnectedModel)
+    from uncertainty_model_tpu_torch.train import Trainer
+
+    model = RandomlyConnectedModel.from_config(**FLAGSHIP_MODEL, seed=seed,
+                                               device=device).train()
+    disc = RandomDiscriminator.from_config(**FLAGSHIP_DISCRIMINATOR,
+                                           init_seed=seed + 1, device=device)
+    return Trainer(model, dict(FLAGSHIP_LOSS,
+                               perceptual_start=ADV_PERCEPTUAL_START),
+                   disc=disc, device=device,
+                   perceptual_update_freq=ADV_UPDATE_FREQ)
+
+
+def plain_loss(trainer, batch, disp_scale):
+    """The step's loss without its adversarial terms, on the model's
+    train-mode forward of ``batch`` (no gradient)."""
+    from uncertainty_model_tpu_torch.ops import (
+        reconstruct_pyramid_with_lr, scale_pyramid)
+
+    with torch.no_grad():
+        disparities = step_disparities(trainer, batch, disp_scale)
+        pyramid = scale_pyramid(torch.cat([batch["left"], batch["right"]],
+                                          -1), trainer.scales)
+        recon, lr = reconstruct_pyramid_with_lr(disparities, pyramid)
+        disp_loss, error_loss = trainer.loss(pyramid, disparities, recon,
+                                             lr_pyramid=lr)
+    return (disp_loss + error_loss).item()
+
+
+def run_adversarial_path(counters):
+    """``train_one_epoch`` of the flagship with its discriminator in f32
+    at batch ``TRAIN_BATCH``, ``TRAIN_STEPS`` repeats of one batch, the
+    losses read after every step (the perceptual term live from step
+    ``ADV_PERCEPTUAL_START``, the clone refreshed at the even steps); every
+    ``warp_rows`` counter must grow by 5 a step and every other by none:
+    the discriminator's convs are cuDNN's, and its step's detached
+    reconstructions launch no warp.  The losses must be finite, the clone
+    equal to the live discriminator just after each refresh and behind it
+    otherwise, the state f32, and the loss without its adversarial terms
+    (which move as the discriminator learns) must fall.  Returns (trainer,
+    batch, launches, per-step losses)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    disp_scale = adjust_scale()
+    trainer = adversarial_trainer(SEED + 50)
+    batch = stereo_batch(TRAIN_BATCH, SEED + 4)
+    before = plain_loss(trainer, batch, disp_scale)
+    n_disc = sum(p.numel() for p in trainer.disc.parameters())
+    seen = []
+
+    def lag_is_live():
+        return all(torch.equal(a, b) for a, b in zip(
+            trainer.disc_lag.parameters(), trainer.disc.parameters()))
+
+    def progress(averages):
+        seen.append(({k: fn.launches for k, fn in counters.items()},
+                     averages, lag_is_live()))
+
+    for fn in counters.values():
+        fn.launches = 0
+    trainer.train_one_epoch([batch] * TRAIN_STEPS, disp_scale, TRAIN_LR,
+                            progress=progress, metrics_every=1)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    after = plain_loss(trainer, batch, disp_scale)
+
+    losses = {}
+    for key in ("disp", "unc", "disc"):
+        previous, losses[key] = 0.0, []
+        for i, (_, avg, _) in enumerate(seen):
+            losses[key].append((avg[key] * (i + 1) - previous) * TRAIN_BATCH)
+            previous = avg[key] * (i + 1)
+    lag_live = [live for _, _, live in seen]
+    log(f"adversarial path: flagship f32 b{TRAIN_BATCH} 256x512 with the "
+        f"discriminator ({n_disc:,} parameters), perceptual_start "
+        f"{ADV_PERCEPTUAL_START}, clone refreshed every {ADV_UPDATE_FREQ}: "
+        + "; ".join(f"{k} " + ", ".join(f"{v:.6f}" for v in vs)
+                    for k, vs in losses.items())
+        + f"; clone equal to the live one after each step {lag_live}; the "
+        f"loss without its adversarial terms {before:.6f} -> {after:.6f}; "
+        f"launches {launches}")
+    if n_disc != FLAGSHIP_DISC_PARAMS:
+        fail(f"the discriminator has {n_disc} parameters")
+    if len(seen) != TRAIN_STEPS or not all(
+            np.isfinite(v).all() for v in losses.values()):
+        fail(f"adversarial losses {losses}")
+    per_step = len(warp_groups(TRAIN_BATCH))
+    for i, (counts, _, _) in enumerate(seen):
+        for name, n in counts.items():
+            want = per_step * (i + 1) if name.startswith("warp_rows") else 0
+            if n != want:
+                fail(f"{name} launched {n} times in {i + 1} adversarial "
+                     f"steps, not {want}")
+    if lag_live != [i % ADV_UPDATE_FREQ == 0 for i in range(TRAIN_STEPS)]:
+        fail(f"the clone was refreshed after steps {lag_live}")
+    if not after < before:
+        fail(f"the loss did not fall: {before} -> {after}")
+    check_f32_state(trainer, f"after {TRAIN_STEPS} adversarial steps")
+    return trainer, batch, launches, losses
+
+
+def disc_step_grads(trainer, pyramid, recon):
+    """The discriminator step's loss and gradient per parameter (on the
+    CPU) from the given image and reconstruction pyramids."""
+    from uncertainty_model_tpu_torch.losses import discriminator_loss
+
+    dev, disc = trainer.device, trainer.disc
+    disc.train()
+    disc.zero_grad(set_to_none=True)
+    loss = discriminator_loss([p.to(dev) for p in pyramid],
+                              [r.to(dev) for r in recon], disc,
+                              len(pyramid[0]))
+    loss.backward()
+    return loss.item(), {n: p.grad.cpu() for n, p in disc.named_parameters()}
+
+
+def lag_recon_grad(trainer, pyramid, recon):
+    """The gradient (on the CPU) in the reconstructions of the clone's
+    terms, the generator's and the perceptual one's as weighted in the
+    loss."""
+    from uncertainty_model_tpu_torch.losses import (
+        generator_loss, perceptual_loss)
+
+    dev, lag, loss = trainer.device, trainer.disc_lag, trainer.loss
+    lag.train()
+    images = [p.to(dev) for p in pyramid]
+    recon = [r.to(dev).requires_grad_() for r in recon]
+    terms = (generator_loss(recon, lag, loss.adversarial_loss_type)
+             * loss.adversarial_weight
+             + perceptual_loss(images, recon, lag.features)
+             * loss.perceptual_weight)
+    return [g.cpu() for g in torch.autograd.grad(terms, recon)]
+
+
+def disc_grad_check(got, want):
+    """(worst |diff| / limit, median relative |diff|) over the
+    discriminator's parameters, limit = max(DISC_GRAD_REL |g|,
+    DISC_GRAD_FLOOR max |g|); the worst five logged."""
+    floor = DISC_GRAD_FLOOR * max(g.double().norm().item()
+                                  for g in want.values())
+    rows = []
+    for name, ref in want.items():
+        diff = (got[name].double() - ref.double()).norm().item()
+        norm = ref.double().norm().item()
+        rows.append((diff / max(DISC_GRAD_REL * norm, floor),
+                     diff / max(norm, 1e-30), norm, name))
+    rows.sort(reverse=True)
+    log("    worst: " + "; ".join(
+        f"{n} at {share:.3g} (relative {r:.3g}, |g| {g:.3g})"
+        for share, r, g, n in rows[:5]) + f"; floor {floor:.3g}")
+    return rows[0][0], float(np.median([r for _, r, _, _ in rows]))
+
+
+def check_adversarial_step_against_cpu(disp_scale):
+    """One adversarial step at batch ``CPU_CHECK_BATCH`` (the perceptual
+    term live) on the card against the same step on the CPU, same weights
+    and batch, lr 0: the three losses within ``LOSS_RTOL``; the whole
+    step's model and discriminator gradients by their medians within
+    ``WHOLE_STEP_MEDIAN_REL`` (the reconstructions differ by the
+    disparities' rounding, phase 3b).  Then each adversarial link on the
+    CPU's own pyramids: the discriminator's loss within ``DISC_LOSS_RTOL``
+    (beside how far the CPU's moves at the card step's reconstructions),
+    its step's gradient per parameter (``disc_grad_check``), and the
+    clone's gradient in the reconstructions per scale within
+    ``LAG_GRAD_REL``.  Every reading is
+    logged before the first failure is reported."""
+    from uncertainty_model_tpu_torch.ops import (
+        reconstruct_pyramid_with_lr, scale_pyramid)
+
+    cpu = adversarial_trainer(SEED + 51, device="cpu")
+    card = adversarial_trainer(SEED + 51)
+    batch = stereo_batch(CPU_CHECK_BATCH, SEED + 52, device="cpu")
+    with torch.no_grad():
+        pyramid = scale_pyramid(torch.cat([batch["left"], batch["right"]],
+                                          -1), cpu.scales)
+        recon, _ = reconstruct_pyramid_with_lr(
+            step_disparities(cpu, batch, disp_scale), pyramid)
+    t0 = time.perf_counter()
+    want = cpu.train_step(batch, disp_scale, 0.0, ADV_PERCEPTUAL_START)
+    cpu_s = time.perf_counter() - t0
+    got = card.train_step(batch, disp_scale, 0.0, ADV_PERCEPTUAL_START)
+    torch.cuda.synchronize()
+    result, problems = {"loss_rel": {}}, []
+    for key in want:
+        w, g = want[key].item(), got[key].item()
+        result["loss_rel"][key] = abs(g - w) / abs(w)
+        log(f"  adversarial {key}: card {g:.7f} cpu {w:.7f} (rel "
+            f"{result['loss_rel'][key]:.3g}, limit {LOSS_RTOL})")
+        if not result["loss_rel"][key] <= LOSS_RTOL:
+            problems.append(f"the card's adversarial step {key} differs "
+                            "from the CPU's")
+    for name, module in (("model", "model"), ("discriminator", "disc")):
+        share, median = grad_check(
+            {n: p.grad.cpu()
+             for n, p in getattr(card, module).named_parameters()},
+            {n: p.grad for n, p in getattr(cpu, module).named_parameters()})
+        result[f"whole_step_{module}_median_rel"] = median
+        log(f"  whole adversarial step, card vs CPU {name} gradients: median "
+            f"relative {median:.3g} (limit {WHOLE_STEP_MEDIAN_REL})")
+        if not median <= WHOLE_STEP_MEDIAN_REL:
+            problems.append(f"the card step's {name} gradients differ from "
+                            "the CPU's")
+
+    t1 = time.perf_counter()
+    card_loss, card_grads = disc_step_grads(card, pyramid, recon)
+    cpu_loss, cpu_grads = disc_step_grads(cpu, pyramid, recon)
+    share, median = disc_grad_check(card_grads, cpu_grads)
+    # the CPU's discriminator loss at the card step's reconstructions
+    with torch.no_grad():
+        moved_recon, _ = reconstruct_pyramid_with_lr(
+            [d.cpu() for d in step_disparities(card, batch, disp_scale)],
+            pyramid)
+    moved_loss, _ = disc_step_grads(cpu, pyramid, moved_recon)
+    result.update(disc_step_worst_share=share, disc_step_median_rel=median,
+                  disc_loss_rel_same_pyramids=abs(card_loss - cpu_loss)
+                  / abs(cpu_loss),
+                  cpu_disc_loss_rel_at_card_recon=abs(moved_loss - cpu_loss)
+                  / abs(cpu_loss))
+    log(f"  discriminator step on the same pyramids, card vs CPU: loss "
+        f"relative {result['disc_loss_rel_same_pyramids']:.3g} (limit "
+        f"{DISC_LOSS_RTOL}; the CPU's "
+        f"at the card step's reconstructions moves by "
+        f"{result['cpu_disc_loss_rel_at_card_recon']:.3g}); gradients worst "
+        f"at {share:.3g} of max({DISC_GRAD_REL} |g|, {DISC_GRAD_FLOOR} max "
+        f"|g|), median relative {median:.3g}")
+    if not result["disc_loss_rel_same_pyramids"] <= DISC_LOSS_RTOL:
+        problems.append("the card's discriminator loss differs from the "
+                        "CPU's")
+    if not share < 1:
+        problems.append("the card's discriminator step differs from the "
+                        "CPU's")
+    card_g = lag_recon_grad(card, pyramid, recon)
+    cpu_g = lag_recon_grad(cpu, pyramid, recon)
+    result["lag_recon_grad_rel"] = [rel(a, b) for a, b in zip(card_g, cpu_g)]
+    log("  the clone's dL/d(recon) on the same pyramids, card vs CPU: "
+        + ", ".join(f"{v:.3g}" for v in result["lag_recon_grad_rel"])
+        + f" (relative, per scale; limit {LAG_GRAD_REL}); CPU step "
+        f"{cpu_s:.1f} s, links {time.perf_counter() - t1:.1f} s")
+    if not max(result["lag_recon_grad_rel"]) <= LAG_GRAD_REL:
+        problems.append("the card's clone gradient differs from the CPU's")
+    if problems:
+        fail("; ".join(problems))
+    return result
+
+
+def run_adversarial_cli(counters, home, out):
+    """``--adversarial`` for one epoch with an evaluation and a checkpoint
+    on phase 3d's tree (launches of each step and evaluation batch, the
+    discriminator's parameter count, the outputs with ``results.json``'s
+    discriminator list), ``final`` reloaded into a fresh adversarial
+    trainer exactly (model, discriminator and both Adam states), then
+    ``--resume-from epoch_001`` for epoch 2."""
+    from uncertainty_model_tpu_torch.train import load_checkpoint
+
+    args, printed, run, launches, steps, evals = run_cli(
+        counters, cli_argv(home, out, "--adversarial", "--epochs", "1"))
+    if (f"Discriminator has {FLAGSHIP_DISC_PARAMS:,} learnable parameters."
+            not in printed):
+        fail("the adversarial CLI did not print the discriminator's size")
+    check_cli_launches(launches, steps, evals, 1)
+    results = check_cli_outputs(args, run, 1, adversarial=True)
+    model_dir = os.path.join(args.save_model_to, run)
+    state, train_state, disc = load_checkpoint(
+        os.path.join(model_dir, "final"), adversarial=True)
+    fresh = adversarial_trainer(SEED + 53)
+    fresh.load_state(state, train_state, disc)
+    same = {}
+    for name, module, weights in (("model", fresh.model, state),
+                                  ("disc", fresh.disc, disc)):
+        same[name] = all(torch.equal(v.cpu(), weights[k])
+                         for k, v in module.state_dict().items())
+    for name, opt in (("optimizer", fresh.optimizer),
+                      ("disc_optimizer", fresh.disc_optimizer)):
+        saved, loaded = (train_state[name]["state"],
+                         opt.state_dict()["state"])
+        same[name] = saved.keys() == loaded.keys() and all(
+            torch.equal(loaded[i][k].cpu(), saved[i][k]) for i in saved
+            for k in ("step", "exp_avg", "exp_avg_sq"))
+    log(f"  adversarial CLI: final reloaded into a fresh trainer: {same}")
+    if not all(same.values()):
+        fail("the adversarial run's final does not reload exactly")
+
+    log("  adversarial resume from epoch_001:")
+    r_args, r_printed, r_run, r_launches, r_steps, r_evals = run_cli(
+        counters, cli_argv(home, os.path.join(out, "resumed"), "--adversarial",
+                           "--resume-from",
+                           os.path.join(model_dir, "epoch_001")))
+    if "Epoch #1:" in r_printed or "Epoch #2:" not in r_printed:
+        fail("the resumed adversarial run did not run epoch 2 alone")
+    check_cli_launches(r_launches, r_steps, r_evals, 1)
+    r_results = check_cli_outputs(r_args, r_run, 1, first=CLI_EPOCHS,
+                                  adversarial=True)
+    return {"launches": launches, "step_launches": steps[0][1],
+            "eval_batch_sizes": [b for b, _ in evals],
+            "losses": results["losses"], "reloaded": same,
+            "resumed": {"launches": r_launches,
+                        "losses": r_results["losses"]}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -1979,15 +2344,16 @@ def device_idle(fn, calls=3):
     return result
 
 
-def time_train_step(trainer, batch, disp_scale, label="f32"):
-    """CUDA-event time of a step (20 steps of warm-up: the first 15 or so
-    after the training path run slower; then the median and spread of 9
-    samples of 5 back-to-back steps each), the device's idle share over 3
-    steps (``device_idle``) and the peak memory."""
+def time_train_step(trainer, batch, disp_scale, label="f32", step_idx=0):
+    """CUDA-event time of a step at batch index ``step_idx`` (20 steps of
+    warm-up: the first 15 or so after the training path run slower; then
+    the median and spread of 9 samples of 5 back-to-back steps each), the
+    device's idle share over 3 steps (``device_idle``) and the peak
+    memory."""
     b = len(batch["left"])
 
     def step():
-        trainer.train_step(batch, disp_scale, TRAIN_LR)
+        trainer.train_step(batch, disp_scale, TRAIN_LR, step_idx)
 
     times = event_samples(step, reps=5, warmup=20)
     ms, spread = statistics.median(times), max(times) - min(times)
@@ -2028,6 +2394,60 @@ def time_bf16_steps(trainer, batch, disp_scale):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
         previous)
     return rows
+
+
+def forward_gflop():
+    """The train-mode forward's conv and matmul GFLOP an image at 256x512
+    of the flagship model, its discriminator and the discriminator's
+    ``features`` (``FlopCounterMode`` on the meta device: shapes only)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from uncertainty_model_tpu_torch.config import (
+        FLAGSHIP_DISCRIMINATOR, FLAGSHIP_INPUT, FLAGSHIP_MODEL)
+    from uncertainty_model_tpu_torch.models import (
+        RandomDiscriminator, RandomlyConnectedModel)
+
+    h, w = FLAGSHIP_INPUT
+    counts = {}
+    with torch.device("meta"):
+        model = RandomlyConnectedModel(**FLAGSHIP_MODEL).train()
+        disc = RandomDiscriminator(**FLAGSHIP_DISCRIMINATOR).train()
+        x = torch.zeros(1, 3, h, w)
+        pyramid = [torch.zeros(1, h >> i, w >> i, 6) for i in range(4)]
+        for name, fn in (("model", lambda: model(x)),
+                         ("discriminator", lambda: disc(pyramid)),
+                         ("discriminator_features",
+                          lambda: disc.features(pyramid))):
+            with FlopCounterMode(display=False) as counter:
+                fn()
+            counts[name] = counter.get_total_flops() / 1e9
+    log("  forward GFLOP an image (shapes only): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in counts.items()))
+    return counts
+
+
+def time_adversarial_step(trainer, batch, disp_scale, f32_step):
+    """The adversarial step (phase 3f's trainer and batch) at a batch index
+    where the perceptual term runs and the clone is not refreshed (the
+    CLI's steady state: 9 batches in 10), timed as ``time_train_step``
+    times the f32 step, with its device time by operator; the
+    discriminator's share of the device's busy time is what the step adds
+    to the f32 step's (``f32_step``, timed in the same run)."""
+    row = time_train_step(trainer, batch, disp_scale, "f32 adversarial",
+                          ADV_PERCEPTUAL_START)
+    row["forward_gflop_per_image"] = forward_gflop()
+    row["breakdown"] = profile_device_time(
+        lambda: trainer.train_step(batch, disp_scale, TRAIN_LR,
+                                   ADV_PERCEPTUAL_START),
+        f"adversarial train step b{TRAIN_BATCH}", top=20)
+    busy = row["device_trace"].get("busy_ms_per_call")
+    base = f32_step["device_trace"].get("busy_ms_per_call")
+    if busy and base:
+        row["disc_share_of_busy"] = 1 - base / busy
+        log(f"  the discriminator's share of the adversarial step's device "
+            f"time: {row['disc_share_of_busy']:.3f} ({busy:.2f} ms busy "
+            f"against the f32 step's {base:.2f})")
+    return row
 
 
 def warp_rows_work(rows, w, c):
@@ -2794,6 +3214,14 @@ def main() -> int:
         previous)
     torch.cuda.empty_cache()
 
+    phase("3f: adversarial training")
+    adv_trainer, adv_batch, adv_launches, adv_losses = run_adversarial_path(
+        all_counters)
+    adv_vs_cpu = check_adversarial_step_against_cpu(disp_scale)
+    adv_cli = run_adversarial_cli(all_counters, tree.name,
+                                  os.path.join(tree.name, "adversarial"))
+    torch.cuda.empty_cache()
+
     phase("4: times")
     fwd = time_forward(forward)
     s2d_fwd = {key: time_forward(f, f"({key}) {S2D_PATHS[key][0]}")
@@ -2824,6 +3252,10 @@ def main() -> int:
         f"train step b{TRAIN_BATCH}", top=30)
     del trainer, batch
     torch.cuda.empty_cache()
+    adv_step = time_adversarial_step(adv_trainer, adv_batch, disp_scale,
+                                     step)
+    del adv_trainer, adv_batch
+    torch.cuda.empty_cache()
     bf16_steps = time_bf16_steps(bf16_trainer, bf16_batch, disp_scale)
     del bf16_trainer, bf16_batch
     eval_time = time_eval_step(eval_model, eval_loader)
@@ -2850,6 +3282,10 @@ def main() -> int:
                     "bf16": {"launches": bf16_launches,
                              "vs_cpu": bf16_vs_cpu,
                              "trajectory": bf16_trajectory, "cli": bf16_cli},
+                    "adversarial": {"launches": adv_launches,
+                                    "losses": adv_losses,
+                                    "vs_cpu": adv_vs_cpu, "cli": adv_cli,
+                                    "train_step": adv_step},
                     "warp_rows_groups": warps,
                     "warp_rows_shapes": warp_shapes_log,
                     "train_breakdown": step_breakdown,
@@ -2881,6 +3317,8 @@ def main() -> int:
             "launches_bf16": bf16_launches[name],
             "launches_cli": cli_run["launches"][name],
             "launches_cli_bf16": bf16_cli["launches"][name],
+            "launches_adversarial": adv_launches[name],
+            "launches_cli_adversarial": adv_cli["launches"][name],
             "timed_launches": sum(r["launches_per_step"] for r in warps),
             "timed_unit": f"one training step at batch {TRAIN_BATCH}",
             "max_abs_err": warp_worst[d],

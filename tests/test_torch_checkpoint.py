@@ -2,7 +2,8 @@
 bit, a finetune restores the weights with a fresh optimizer, the JAX
 package reads the port's ``model.pt`` (and its eval forward on it equals
 the port's), and reference ``.pt`` files load with DDP's ``module.``
-prefix and with a discriminator beside the model.  On the tiny config
+prefix and with a discriminator beside the model; an adversarial
+checkpoint resumes bit for bit and the JAX package reads it.  On the tiny config
 (``torch_port_helpers.PORT_MODEL``, 32x64, batch 2) from converted JAX
 weights, on the CPU."""
 
@@ -12,14 +13,21 @@ import numpy as np
 import pytest
 import torch
 
-from tiny_config import TINY_INPUT, TINY_LOSS
+import jax
+
+from tiny_config import TINY_DISCRIMINATOR, TINY_INPUT, TINY_LOSS
 from torch_port_helpers import (
-    PORT_MODEL, jax_eval, models as build_models, port_model, to_nchw,
-    to_nhwc_numpy)
+    PORT_MODEL, discriminators, jax_eval, models as build_models, port_disc,
+    port_model, to_nchw, to_nhwc_numpy)
 
 from uncertainty_model_tpu.train.checkpoint import (
     load_torch_checkpoint as jax_load_torch_checkpoint)
+from uncertainty_model_tpu.train.convert import (
+    convert_discriminator_state_dict, convert_model_state_dict)
 
+from uncertainty_model_tpu_torch.convert import (
+    from_jax_discriminator_variables)
+from uncertainty_model_tpu_torch.models import RandomDiscriminator
 from uncertainty_model_tpu_torch.train import (
     Trainer, load_checkpoint, load_torch_checkpoint, save_checkpoint)
 
@@ -129,14 +137,103 @@ def test_reference_pt_with_ddp_prefix_loads(variables, tmp_path):
 
 def test_adversarial_reference_pt_returns_both_and_the_trainer_refuses(
         variables, tmp_path):
-    """A ``{"model", "disc"}`` file returns both dicts (prefixes stripped);
-    the trainer refuses a discriminator until the adversarial branch is
-    ported."""
-    sd = _trainer(variables).model.state_dict()
-    disc = {"module.final.weight": torch.ones(2, 3)}
-    torch.save({"model": sd, "disc": disc}, tmp_path / "adv.pt")
+    """A ``{"model", "disc"}`` file returns both dicts (prefixes stripped)
+    and loads into a trainer with a discriminator (its lagged clone a copy
+    of the restored one); a trainer without one refuses the
+    discriminator's weights, and one with a discriminator refuses to go
+    without them."""
+    source = _adversarial_trainer(variables)
+    source.train_step(_batch(9), 0.3, LR)
+    sd, disc = source.model.state_dict(), source.disc.state_dict()
+    torch.save({"model": sd, "disc": {f"module.{k}": v
+                                      for k, v in disc.items()}},
+               tmp_path / "adv.pt")
     state_dict, disc_sd = load_torch_checkpoint(str(tmp_path / "adv.pt"))
-    assert state_dict.keys() == sd.keys()
-    assert list(disc_sd) == ["final.weight"]
-    with pytest.raises(NotImplementedError):
+    assert state_dict.keys() == sd.keys() and disc_sd.keys() == disc.keys()
+    target = _adversarial_trainer(variables)
+    assert target.load_state(state_dict, disc_state_dict=disc_sd) == 0
+    for k, v in target.disc.state_dict().items():
+        assert torch.equal(v, disc[k]), k
+    for a, b in zip(target.disc_lag.parameters(), source.disc.parameters()):
+        assert torch.equal(a, b)
+    assert target.disc_optimizer.state_dict()["state"] == {}
+    with pytest.raises(ValueError, match="trainer with a discriminator"):
         _trainer(variables).load_state(state_dict, disc_state_dict=disc_sd)
+    with pytest.raises(ValueError, match="give its weights"):
+        _adversarial_trainer(variables).load_state(state_dict)
+
+
+def _adversarial_trainer(variables):
+    return Trainer(port_model(PORT_MODEL, variables).train(), TINY_LOSS,
+                   disc=port_disc(discriminators()[1]), device="cpu")
+
+
+def test_adversarial_checkpoint_resumes_bit_for_bit(variables, tmp_path):
+    """``model.pt`` holds ``{"model", "disc"}`` and ``train_state.pt`` both
+    optimizers; a fresh trainer loaded from it holds the same weights,
+    statistics and Adam state as the one saved, and, the clone having been
+    refreshed at the saved step (step 0), the next step equals the
+    uninterrupted run's bit for bit.  Loaded without ``adversarial`` the
+    checkpoint gives the model alone."""
+    straight = _adversarial_trainer(variables)
+    straight.train_step(_batch(11), 0.3, LR, 0)
+    path = save_checkpoint(str(tmp_path), straight.model, straight.optimizer,
+                           epoch_number=1, disc=straight.disc,
+                           disc_optimizer=straight.disc_optimizer)
+    payload = torch.load(os.path.join(path, "model.pt"), weights_only=True)
+    assert sorted(payload) == ["disc", "model"]
+    resumed = _adversarial_trainer(variables)
+    assert resumed.load_state(*load_checkpoint(path, adversarial=True)) == 1
+    assert _equal_states(straight, resumed)
+    got = resumed.train_step(_batch(12), 0.3, LR, 1)
+    want = straight.train_step(_batch(12), 0.3, LR, 1)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    for module in ("model", "disc"):
+        a = getattr(straight, module).state_dict()
+        b = getattr(resumed, module).state_dict()
+        assert all(torch.equal(a[k], b[k]) for k in a), module
+    sa = straight.disc_optimizer.state_dict()["state"]
+    sb = resumed.disc_optimizer.state_dict()["state"]
+    assert all(torch.equal(sa[i][n], sb[i][n]) for i in sa
+               for n in ("step", "exp_avg", "exp_avg_sq"))
+
+    state_dict, train_state = load_checkpoint(path)
+    assert state_dict.keys() == payload["model"].keys()
+    plain = save_checkpoint(str(tmp_path), straight.model, straight.optimizer,
+                            is_final=True)
+    with pytest.raises(ValueError, match="holds no discriminator"):
+        load_checkpoint(plain, adversarial=True)
+
+
+def test_jax_package_reads_the_ports_adversarial_model_pt(variables,
+                                                          tmp_path):
+    """The JAX package's ``load_torch_checkpoint(adversarial=True)`` reads
+    an adversarial ``model.pt`` of the port back to the JAX variables the
+    port's weights came from (``from_jax_discriminator_variables``), bit
+    for bit.  The JAX reader assumes the flagship's 8x16 final map, so the
+    tiny discriminator's head is sized for a 256x512 input here."""
+    cfg = dict(TINY_DISCRIMINATOR, linear_in_features=16 * 8 * 16)
+    built = RandomDiscriminator.from_config(**cfg, init_seed=4, device="cpu")
+    want = convert_discriminator_state_dict(
+        {k: v.numpy() for k, v in built.state_dict().items()},
+        final_feature_hw=(8, 16))
+    disc = RandomDiscriminator(**cfg)
+    disc.load_state_dict(from_jax_discriminator_variables(want, (8, 16)))
+    trainer = _trainer(variables)
+    path = save_checkpoint(str(tmp_path), trainer.model, trainer.optimizer,
+                           is_final=True, disc=disc,
+                           disc_optimizer=torch.optim.Adam(disc.parameters()))
+    jvars, jdisc = jax_load_torch_checkpoint(os.path.join(path, "model.pt"),
+                                             PORT_MODEL, adversarial=True)
+    flat = {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+            jax.tree_util.tree_flatten_with_path(jdisc)[0]}
+    ref = {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+           jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert flat.keys() == ref.keys() and len(flat) > 100
+    for key in ref:
+        np.testing.assert_array_equal(flat[key], ref[key], err_msg=key)
+    model_sd = {k: v.numpy() for k, v in trainer.model.state_dict().items()}
+    np.testing.assert_array_equal(
+        jvars["params"]["encoder"]["stage_0"]["attention"]["keys"]["kernel"],
+        convert_model_state_dict(model_sd, PORT_MODEL["decoder"]["layers"])
+        ["params"]["encoder"]["stage_0"]["attention"]["keys"]["kernel"])

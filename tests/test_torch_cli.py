@@ -17,7 +17,15 @@ the port's PNG writer.
 - ``--precision bfloat16`` trains the bf16-compute model: finite
   ``results.json``, f32 checkpoints, and ``--resume-from epoch_001``
   equal to the uninterrupted run bit for bit;
-- ``--adversarial``, ``--data-backend pil``, a ``.pt`` for
+- ``--adversarial`` trains against the tiny discriminator (the JAX
+  package's parameter count printed), writes ``{"model", "disc"}``
+  checkpoints with both optimizers and ``results.json`` with its loss
+  list (as the JAX ``_write_results`` writes it), resumes bit for bit
+  (one step an epoch: the clone was refreshed at the checkpoint's step),
+  and finetunes from a directory or a reference ``{"model", "disc"}``
+  ``.pt``, which without ``--adversarial`` gives the model alone;
+- ``--adversarial --precision bfloat16``, ``--adversarial`` from a
+  model-only ``.pt``, ``--data-backend pil``, a ``.pt`` for
   ``--resume-from``, a JAX (orbax) checkpoint and a missing CUDA device
   are refused.
 """
@@ -287,7 +295,8 @@ def _check_bf16_run(data_home, tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,message", [
-    (["--adversarial"], NotImplementedError, "Queue 1 item 5"),
+    (["--adversarial", "--precision", "bfloat16"], NotImplementedError,
+     "losses/total.py:97-101"),
     (["--data-backend", "pil"], ValueError, "no PIL path"),
 ])
 def test_unported_options_are_refused(data_home, tmp_path, extra, error,
@@ -351,3 +360,138 @@ def test_float32_turns_tf32_off(data_home, tmp_path):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.fixture(scope="module")
+def adversarial(data_home, tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("adversarial"))
+    argv = _argv(data_home, out, "--adversarial")
+    args, printed, run = _run(argv)
+    return {"argv": argv, "args": args, "printed": printed,
+            "model_dir": os.path.join(args.save_model_to, run),
+            "results_dir": os.path.join(args.save_results_to, run)}
+
+
+def test_adversarial_trains_checkpoints_and_writes_results(adversarial,
+                                                           tmp_path):
+    """``--adversarial``: the JAX package's discriminator parameter count
+    (``jax.eval_shape`` of its init on the tiny config), ``{"model",
+    "disc"}`` checkpoints with both optimizers, and ``results.json`` with
+    a finite discriminator loss each epoch, equal to what the JAX
+    ``_write_results`` writes for the same losses."""
+    import jax
+    import jax.numpy as jnp
+
+    from uncertainty_model_tpu.models import RandomDiscriminator as JaxDisc
+
+    with open("configs/tiny.yml") as f:
+        config = yaml.load(f, Loader=yaml.Loader)
+    pyr = [jax.ShapeDtypeStruct((1, 32 >> i, 64 >> i, 6), jnp.float32)
+           for i in range(4)]
+    shapes = jax.eval_shape(JaxDisc.from_config(**config["discriminator"]).init,
+                            jax.random.PRNGKey(0), pyr)["params"]
+    n = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
+    assert f"Discriminator has {n:,} learnable parameters." in (
+        adversarial["printed"])
+
+    for name in ("epoch_001", "epoch_002", "final"):
+        path = os.path.join(adversarial["model_dir"], name)
+        weights = _load(os.path.join(path, "model.pt"))
+        assert sorted(weights) == ["disc", "model"]
+        assert "linear.weight" in weights["disc"]
+        state = _load(os.path.join(path, "train_state.pt"))
+        assert sorted(state) == ["disc_optimizer", "epoch", "optimizer"]
+    with open(os.path.join(adversarial["results_dir"], "results.json")) as f:
+        got = json.load(f)
+    training = got["losses"]["training"]
+    assert len(training["discriminator"]) == 2
+    assert np.isfinite(training["discriminator"]).all()
+    validation = got["losses"]["validation"]
+    metrics = [((l, r), (a, g)) for l, r, a, g in zip(
+        validation["ssim"]["left"], validation["ssim"]["right"],
+        validation["sparsification"]["ause"],
+        validation["sparsification"]["aurg"])]
+    jax_args = jax_cli.build_parser().parse_args(adversarial["argv"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        jax_cli._write_results(
+            str(tmp_path), jax_args, config,
+            list(zip(training["disparity"], training["uncertainty"],
+                     training["discriminator"])), metrics)
+    with open(tmp_path / "results.json") as f:
+        assert got == json.load(f)
+
+
+def test_adversarial_resume_equals_uninterrupted(adversarial, data_home,
+                                                 tmp_path):
+    """``--adversarial --resume-from epoch_001``: epoch 2 alone, ending
+    with the uninterrupted run's ``final`` (model, discriminator and both
+    optimizers) bit for bit.  An epoch is one step here, so the clone the
+    uninterrupted run takes into epoch 2 is the checkpoint's discriminator,
+    which is what the resumed run starts its clone from."""
+    epoch_1 = os.path.join(adversarial["model_dir"], "epoch_001")
+    _, printed, run = _run(_argv(data_home, str(tmp_path), "--adversarial",
+                                 "--resume-from", epoch_1))
+    assert "Epoch #1:" not in printed and "Epoch #2:" in printed
+    final = os.path.join(adversarial["model_dir"], "final")
+    resumed = tmp_path / "trained" / run / "final"
+    want = _load(os.path.join(final, "model.pt"))
+    got = _load(resumed / "model.pt")
+    for part in ("model", "disc"):
+        assert want[part].keys() == got[part].keys()
+        assert all(torch.equal(want[part][k], got[part][k])
+                   for k in want[part]), part
+    want = _load(os.path.join(final, "train_state.pt"))
+    got = _load(resumed / "train_state.pt")
+    for part in ("optimizer", "disc_optimizer"):
+        w, g = want[part]["state"], got[part]["state"]
+        assert w.keys() == g.keys() and all(
+            torch.equal(w[i][k], g[i][k]) for i in w
+            for k in ("step", "exp_avg", "exp_avg_sq")), part
+
+
+@pytest.mark.parametrize("source", ["final", "reference_pt"])
+def test_adversarial_finetune_loads_both(adversarial, data_home, tmp_path,
+                                         source):
+    """``--adversarial --finetune-from`` a ``final`` directory or a
+    reference ``{"model", "disc"}`` ``.pt`` (``module.`` keys): at
+    learning rate 0 the model's and the discriminator's parameters stay
+    the loaded ones.  Without ``--adversarial`` the same source trains
+    the model alone."""
+    final = os.path.join(adversarial["model_dir"], "final")
+    weights = _load(os.path.join(final, "model.pt"))
+    path = final
+    if source == "reference_pt":
+        path = str(tmp_path / "reference.pt")
+        torch.save({part: {f"module.{k}": v for k, v in sd.items()}
+                    for part, sd in weights.items()}, path)
+    for extra, out in ((["--adversarial"], "adv"), ([], "plain")):
+        args, printed, run = _run(_argv(
+            data_home, str(tmp_path / out), "--finetune-from", path,
+            "--epochs", "1", "--learning-rate", "0", *extra))
+        assert "disparity scale: 1.00" in printed
+        tuned = _load(os.path.join(args.save_model_to, run, "final",
+                                   "model.pt"))
+        parts = ("model", "disc") if extra else ("model",)
+        if not extra:
+            assert "Discriminator" not in printed and "disc" not in tuned
+            tuned = {"model": tuned}
+        for part in parts:
+            names = [k for k in weights[part] if "running_" not in k
+                     and "num_batches_tracked" not in k]
+            assert names and all(torch.equal(tuned[part][k],
+                                              weights[part][k])
+                                 for k in names), part
+
+
+def test_adversarial_needs_a_discriminator_to_restore(recipe, data_home,
+                                                      tmp_path):
+    """``--adversarial`` from a model-only ``.pt`` or checkpoint directory
+    fails, naming the file."""
+    final = os.path.join(recipe["model_dir"], "final")
+    for path in (os.path.join(final, "model.pt"), final):
+        args = build_parser().parse_args(_argv(
+            data_home, str(tmp_path), "--adversarial", "--finetune-from",
+            path))
+        with pytest.raises(ValueError, match="holds no discriminator"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                main(args)

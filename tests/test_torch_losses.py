@@ -10,7 +10,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import torch_port_helpers  # noqa: F401  (sets the torch thread count)
+from tiny_config import TINY_LOSS
+from torch_port_helpers import discriminators, jax_disc_apply, port_disc
 
 from uncertainty_model_tpu import losses as jl
 from uncertainty_model_tpu.ops import reconstruct_pyramid_with_lr as jax_recon_lr
@@ -170,9 +171,32 @@ def test_total_loss_with_fused_lr(cfg):
 
 @pytest.mark.parametrize("hook", ["disc_apply", "disc_features"])
 def test_total_loss_has_no_adversarial_branch_yet(hook):
+    """The adversarial terms against the JAX package's, with the tiny
+    discriminator in train mode on both sides (``TINY_LOSS``,
+    ``perceptual_start`` 2): ``disc_apply`` at step 1 adds the generator
+    term alone; ``disc_features`` is the perceptual term's hook, live at
+    step 2 where the gate opens.  Values and input gradients within the
+    module's limits."""
+    jdisc, variables = discriminators()
+    disc = port_disc(variables)
+    step = {"disc_apply": 1, "disc_features": 2}[hook]
     images, preds, recons = _pyramid(30)
-    t = [[torch.from_numpy(a) for a in group] for group in (images, preds,
-                                                           recons)]
-    _, lr = reconstruct_pyramid_with_lr(t[1], t[0])
-    with pytest.raises(NotImplementedError, match="adversarial"):
-        tl.TukraUncertaintyLoss()(*t, lr, **{hook: lambda pyr: pyr})
+    jloss, tloss = (jl.TukraUncertaintyLoss(**TINY_LOSS),
+                    tl.TukraUncertaintyLoss(**TINY_LOSS))
+
+    def jax_fn(preds, recons):
+        ims = jax.tree.map(jnp.asarray, images)
+        _, lr = jax_recon_lr(preds, ims)
+        return jloss(ims, preds, recons, step=jnp.int32(step),
+                     disc_apply=jax_disc_apply(jdisc, variables),
+                     disc_features=jax_disc_apply(jdisc, variables,
+                                                  "features"),
+                     lr_pyramid=lr)
+
+    def torch_fn(preds, recons):
+        ims = [torch.from_numpy(i) for i in images]
+        _, lr = reconstruct_pyramid_with_lr(preds, ims)
+        return tloss(ims, preds, recons, lr, step=step, disc_apply=disc,
+                     disc_features=disc.features)
+
+    _check(jax_fn, torch_fn, [preds, recons])

@@ -1,6 +1,6 @@
-"""Shared set-up of the PyTorch port's tests: one tiny model with real
-BatchNorm statistics, in the port and in the JAX package with the same
-weights.
+"""Shared set-up of the PyTorch port's tests: one tiny model (and one tiny
+discriminator) with real BatchNorm statistics, in the port and in the JAX
+package with the same weights.
 
 The weights are drawn by the port from a seed, the gate weights from a
 numpy seed, and the BatchNorm running statistics come from a few
@@ -19,12 +19,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tiny_config import TINY_INPUT, TINY_MODEL
+from tiny_config import TINY_DISCRIMINATOR, TINY_INPUT, TINY_MODEL
 
+from uncertainty_model_tpu.models import RandomDiscriminator as JaxDisc
 from uncertainty_model_tpu.models import RandomlyConnectedModel as JaxModel
-from uncertainty_model_tpu.train.convert import convert_model_state_dict
-from uncertainty_model_tpu_torch.convert import from_jax_variables
-from uncertainty_model_tpu_torch.models import RandomlyConnectedModel
+from uncertainty_model_tpu.train.convert import (
+    convert_discriminator_state_dict, convert_model_state_dict)
+from uncertainty_model_tpu_torch.convert import (
+    from_jax_discriminator_variables, from_jax_variables)
+from uncertainty_model_tpu_torch.models import (
+    RandomDiscriminator, RandomlyConnectedModel)
 
 # the tiny config with the flagship's kernel sizes in the first two stages,
 # and fused decoder stages whose upsample width is not 4 (with 4 channels
@@ -104,3 +108,57 @@ def jax_eval(jmodel, variables, x, disp_scale):
     """``model.apply(train=False)``, all four scales, as numpy."""
     fwd = jax.jit(lambda v, x: jmodel.apply(v, x, disp_scale=disp_scale))
     return [np.asarray(d) for d in fwd(variables, jnp.asarray(x))]
+
+
+# the tiny discriminator's final conv output at 32x64: 5 stride-2 stages
+DISC_FEATURE_HW = (TINY_INPUT[0] // 32, TINY_INPUT[1] // 32)
+
+
+def pyramid(seed, batch=2, channels=6):
+    """A numpy NHWC pyramid of the tiny input size, 4 scales."""
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(size=(batch, TINY_INPUT[0] >> i, TINY_INPUT[1] >> i,
+                              channels)).astype(np.float32)
+            for i in range(4)]
+
+
+def port_disc(variables, dtype=None):
+    """The port's discriminator on the CPU in train mode, loaded from JAX
+    variables, with compute type ``dtype``."""
+    disc = RandomDiscriminator(**TINY_DISCRIMINATOR, dtype=dtype)
+    disc.load_state_dict(from_jax_discriminator_variables(
+        variables, DISC_FEATURE_HW), strict=True)
+    return disc.to(memory_format=torch.channels_last).train()
+
+
+@functools.lru_cache(maxsize=None)
+def discriminators(seed=0, train_applies=2):
+    """(JAX discriminator, its JAX variables) of ``TINY_DISCRIMINATOR``:
+    the port's initialisation from ``seed``, gate weights from a numpy
+    seed, BatchNorm statistics from a few train-mode forwards; the port's
+    is ``port_disc(variables)``."""
+    disc = RandomDiscriminator.from_config(**TINY_DISCRIMINATOR,
+                                           init_seed=seed, device="cpu")
+    rng = np.random.default_rng(seed + 100)
+    with torch.no_grad():
+        for key, p in disc.named_parameters():
+            if key.endswith("mean_weight"):
+                p.copy_(torch.from_numpy(
+                    rng.normal(size=p.shape).astype(np.float32)))
+        disc.train()
+        for i in range(train_applies):
+            disc([torch.from_numpy(a) for a in pyramid(seed + 200 + i)])
+    sd = {k: v.numpy() for k, v in disc.state_dict().items()}
+    variables = convert_discriminator_state_dict(
+        sd, final_feature_hw=DISC_FEATURE_HW)
+    return JaxDisc.from_config(**TINY_DISCRIMINATOR), variables
+
+
+def jax_disc_apply(jdisc, variables, method=None):
+    """The JAX discriminator in train mode as the JAX trainer applies it
+    (``_apply_disc``), its BatchNorm updates dropped."""
+    def apply(pyr):
+        out, _ = jdisc.apply(variables, pyr, train=True,
+                             mutable=["batch_stats"], method=method)
+        return out
+    return apply

@@ -3,7 +3,8 @@ main.py)::
 
     python -m uncertainty_model_tpu_torch.cli.main <config.yml> \\
         <da-vinci|scared|cityscapes> [--epochs N] [--batch-size B]
-        [--learning-rate LR] [--finetune-from PATH] [--resume-from DIR]
+        [--learning-rate LR] [--adversarial]
+        [--finetune-from PATH] [--resume-from DIR]
         [--training-size N] [--validation-size N] [--workers W]
         [--save-model-to DIR] [--save-results-to DIR]
         [--save-model-every N] [--evaluate-every N]
@@ -27,11 +28,20 @@ not change an f32 product on the CPU (a 64x256x64 f32 ``jnp.dot`` is the
 same with and without it), so on the CPU the two CLIs compute the same
 products.
 
-Not ported yet, and refused: ``--adversarial`` (ROADMAP Queue 1 item 5),
-``--data-backend pil`` (the port decodes with its own PNG decoder), and
-JAX (orbax) checkpoints for ``--resume-from`` / ``--finetune-from``, which
-read the port's checkpoint directories (``train/checkpoint.py``) or
-reference ``.pt`` files.
+``--adversarial`` trains against the config's ``discriminator`` (a
+``RandomDiscriminator`` initialised from ``--seed`` + 1), whose loss
+``results.json`` records per epoch; its checkpoints hold the
+discriminator and its optimizer, and ``--resume-from`` /
+``--finetune-from`` restore it from a checkpoint directory of the port or
+a reference ``{"model", "disc"}`` ``.pt`` file.  Without
+``--adversarial`` such a file loads the model alone.  ``--adversarial``
+runs in f32 only: with ``--precision bfloat16`` it is refused, as the JAX
+package's bf16 adversarial step does not run.
+
+Not ported, and refused: ``--data-backend pil`` (the port decodes with its
+own PNG decoder), and JAX (orbax) checkpoints for ``--resume-from`` /
+``--finetune-from``, which read the port's checkpoint directories
+(``train/checkpoint.py``) or reference ``.pt`` files.
 """
 
 from __future__ import annotations
@@ -56,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--batch-size", "-b", default=8, type=int,
                         help="Batch size.")
     parser.add_argument("--adversarial", action="store_true", default=False,
-                        help="Not ported yet (ROADMAP Queue 1 item 5).")
+                        help="Train against the config's discriminator "
+                             "(f32 only).")
     parser.add_argument("--finetune-from", default=None, type=str,
                         help="Path to a checkpoint dir of the port or a "
                              "reference .pt file. Reference finetune "
@@ -97,10 +108,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    if args.adversarial:
+    from ..train.trainer import BF16_ADVERSARIAL
+
+    if args.adversarial and args.precision != "float32":
         raise NotImplementedError(
-            "--adversarial: the discriminator and the adversarial losses "
-            "are not ported yet (ROADMAP Queue 1 item 5)")
+            f"--adversarial --precision {args.precision}: "
+            f"{BF16_ADVERSARIAL}")
     if args.resume_from is not None and args.finetune_from is not None:
         raise SystemExit("--resume-from and --finetune-from are exclusive")
 
@@ -133,8 +146,13 @@ def _restore(args: argparse.Namespace, trainer) -> int:
         if args.resume_from is not None:
             raise SystemExit("--resume-from needs a checkpoint directory "
                              "(.pt files carry no optimiser state/epoch)")
-        state_dict, _ = load_torch_checkpoint(path)
-        return trainer.load_state(state_dict)
+        state_dict, disc_state_dict = load_torch_checkpoint(path)
+        if not args.adversarial:
+            return trainer.load_state(state_dict)
+        if disc_state_dict is None:
+            raise ValueError(f"{path} holds no discriminator: --adversarial "
+                             f"needs a {{'model', 'disc'}} checkpoint")
+        return trainer.load_state(state_dict, disc_state_dict=disc_state_dict)
     if not os.path.isfile(os.path.join(path, MODEL_FILE)):
         if os.path.isdir(path) and any(
                 os.path.exists(os.path.join(path, f)) for f in _ORBAX_FILES):
@@ -144,10 +162,11 @@ def _restore(args: argparse.Namespace, trainer) -> int:
                 f" beside train_state.pt) or a reference .pt file")
         raise FileNotFoundError(f"{path}: no {MODEL_FILE}, not a checkpoint "
                                 f"directory of the port")
-    state_dict, train_state = load_checkpoint(path)
+    state_dict, train_state, *disc = load_checkpoint(
+        path, adversarial=args.adversarial)
     if args.resume_from is None:  # finetune: the weights alone
-        return trainer.load_state(state_dict)
-    return trainer.load_state(state_dict, train_state)
+        train_state = None
+    return trainer.load_state(state_dict, train_state, *disc)
 
 
 def main(args: argparse.Namespace) -> None:
@@ -161,7 +180,7 @@ def main(args: argparse.Namespace) -> None:
         default_eval_transform,
     )
     from ..device import resolve_device
-    from ..models import RandomlyConnectedModel
+    from ..models import RandomDiscriminator, RandomlyConnectedModel
     from ..train import Trainer
 
     _refuse_unported(args)
@@ -206,12 +225,20 @@ def main(args: argparse.Namespace) -> None:
 
     model = RandomlyConnectedModel.from_config(**config["model"], dtype=dtype,
                                                seed=args.seed, device=device)
-    trainer = Trainer(model, config["loss"], device=device)
+    disc = (RandomDiscriminator.from_config(**config["discriminator"],
+                                            dtype=dtype,
+                                            init_seed=args.seed + 1,
+                                            device=device)
+            if args.adversarial else None)
+    trainer = Trainer(model, config["loss"], disc=disc, device=device)
     start_epoch = _restore(args, trainer)
 
     n_params = sum(p.numel() for p in trainer.model.parameters())
     print(f"Model has {n_params:,} learnable parameters."
           f"\n\tPlatform: {device.type}")
+    if disc is not None:
+        n_disc = sum(p.numel() for p in trainer.disc.parameters())
+        print(f"Discriminator has {n_disc:,} learnable parameters.")
 
     date = datetime.now().strftime("%Y%m%d%H%M%S")
     folder = f"model_{date}"

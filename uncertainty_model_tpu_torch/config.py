@@ -3,9 +3,10 @@ the YAML files under ``configs/`` that needs no YAML package.
 
 ``FLAGSHIP_MODEL`` is the ``model:`` section of ``configs/uncertainty.yml``:
 the reference's production architecture, 22.5M parameters at 256x512
-input; ``FLAGSHIP_LOSS`` is its ``loss:`` section.
-tests/test_torch_serving.py and tests/test_torch_train.py pin them equal
-to the file.
+input; ``FLAGSHIP_DISCRIMINATOR`` its ``discriminator:`` section (7.6M
+parameters) and ``FLAGSHIP_LOSS`` its ``loss:`` section.
+tests/test_torch_serving.py, tests/test_torch_discriminator.py and
+tests/test_torch_train.py pin them equal to the file.
 
 ``load_config`` reads the subset of YAML that ``configs/*.yml`` use, with
 the values ``yaml.load(f, Loader=yaml.Loader)`` gives them
@@ -63,6 +64,25 @@ FLAGSHIP_MODEL = {
              "disp_channels": 4},
         ],
     },
+}
+
+# the ``discriminator:`` section of configs/uncertainty.yml: stage i > 0
+# eats the previous stage's output and pyramid level i (6 more channels)
+FLAGSHIP_DISCRIMINATOR = {
+    "load_graph": "graphs/nodes_5_seed_42",
+    "nodes": 5,
+    "seed": 42,
+    "layers": [
+        {"in_channels": 6, "out_channels": 32, "kernel_size": 7, "heads": 8},
+        {"in_channels": 38, "out_channels": 64, "kernel_size": 5, "heads": 8},
+        {"in_channels": 70, "out_channels": 128, "kernel_size": 3,
+         "heads": 8},
+        {"in_channels": 134, "out_channels": 256, "kernel_size": 3,
+         "heads": 8},
+    ],
+    "final_conv": {"in_channels": 256, "out_channels": 256, "kernel_size": 3,
+                   "heads": 8},
+    "linear_in_features": 32768,
 }
 
 # the ``loss:`` section of configs/uncertainty.yml (TukraUncertaintyLoss's

@@ -2,10 +2,15 @@
 ``TukraUncertaintyLoss``).
 
 Per pyramid scale i: WSSIM reconstruction + LR consistency + smoothness/2^i
-+ the uncertainty (predictive-error) loss.  Returns ``(total_disparity_loss,
-total_error_loss)`` separately, like the reference.  The adversarial terms
-(generator and perceptual losses against a discriminator) belong to the
-adversarial slice of the port, which is not written yet.
++ the uncertainty (predictive-error) loss; with a discriminator, the
+generator loss and, from batch ``perceptual_start`` of each epoch on, the
+perceptual loss.  Returns ``(total_disparity_loss, total_error_loss)``
+separately, like the reference.
+
+The reference's gating quirk (train/train.py:124) is kept: the *batch
+index within the epoch* is the ``step`` that gates the perceptual term, so
+``perceptual_start=5`` skips it for the first 5 batches of every epoch.
+``step`` is a Python int, so the gate is decided on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from .adversarial import generator_loss, perceptual_loss
 from .consistency import l1_loss
 from .reprojection import reprojection_error_loss
 from .smoothness import smoothness_loss
@@ -23,8 +29,8 @@ from .wssim import wssim_loss
 
 @dataclasses.dataclass(frozen=True)
 class TukraUncertaintyLoss:
-    """Configured by the reference constructor's keys (config.yml ``loss``);
-    the adversarial ones are kept so that the flagship config loads."""
+    """Configured by the reference constructor's keys (config.yml
+    ``loss``)."""
 
     wssim_weight: float = 1.0
     consistency_weight: float = 1.0
@@ -47,13 +53,10 @@ class TukraUncertaintyLoss:
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """NHWC pyramids, finest first.  ``lr_pyramid``: the LR-consistency
         warps from ``reconstruct_pyramid_with_lr``, fused into the
-        reconstruction's.  ``step`` gates the perceptual term, which this
-        slice does not have."""
-        if disc_apply is not None or disc_features is not None:
-            raise NotImplementedError(
-                "the adversarial losses (discriminator, generator and "
-                "perceptual terms) belong to the port's adversarial slice, "
-                "which is not written yet")
+        reconstruction's.  ``disc_apply`` and ``disc_features``: the
+        discriminator's predictions and stage maps (``adversarial.py``);
+        without them the adversarial terms are left out.  ``step``: the
+        batch index within the epoch, which gates the perceptual term."""
         error_cfg = dict(self.error_loss_config or {})
 
         reprojection = consistency = smoothness = error_loss = 0.0
@@ -73,5 +76,13 @@ class TukraUncertaintyLoss:
         total_disparity_loss = (reprojection * self.wssim_weight
                                 + consistency * self.consistency_weight
                                 + smoothness * self.smoothness_weight)
+        if disc_apply is not None:
+            total_disparity_loss = total_disparity_loss + generator_loss(
+                recon_pyramid, disc_apply,
+                self.adversarial_loss_type) * self.adversarial_weight
+            if step is not None and step >= self.perceptual_start:
+                total_disparity_loss = total_disparity_loss + perceptual_loss(
+                    image_pyramid, recon_pyramid,
+                    disc_features) * self.perceptual_weight
         total_error_loss = error_loss * self.predictive_error_weight
         return total_disparity_loss, total_error_loss

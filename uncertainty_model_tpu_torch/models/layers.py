@@ -106,8 +106,9 @@ def attention_softmax(v: torch.Tensor, dim: int) -> torch.Tensor:
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from ``generator``: Xavier-
     uniform conv kernels with U(+-1/sqrt(fan_in)) biases, U(+-1/sqrt(fan_in))
-    linear weights (torch's defaults for the SE layers); BatchNorm and the
-    gate weights keep their constructors' values."""
+    linear weights and biases (torch's defaults for the SE layers, the
+    JAX package's ``torch_fanin_uniform`` for the discriminator's head);
+    BatchNorm and the gate weights keep their constructors' values."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
@@ -122,6 +123,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             b = 1.0 / math.sqrt(m.in_features)
             with torch.no_grad():
                 m.weight.uniform_(-b, b, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-b, b, generator=generator)
 
 
 # ---------------------------------------------------------------------------

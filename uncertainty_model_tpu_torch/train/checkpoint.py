@@ -6,10 +6,14 @@ JAX package names its own, holding two files:
 
 - ``model.pt``: the model's ``state_dict`` as the reference saves it, a bare
   dict of CPU tensors under the reference's keys, which the reference and
-  the JAX package's ``load_torch_checkpoint`` read as it is;
+  the JAX package's ``load_torch_checkpoint`` read as it is; with a
+  discriminator, the adversarial reference's ``{"model": ..., "disc":
+  ...}``;
 - ``train_state.pt``: the optimizer's ``state_dict`` (Adam's moments and
-  step counts) and the epoch number (None for ``final``, as in the JAX
-  package).
+  step counts), with a discriminator its optimizer's as
+  ``disc_optimizer``, and the epoch number (None for ``final``, as in the
+  JAX package).  The discriminator's lagged clone is not saved, as in the
+  JAX package.
 
 ``Trainer.load_state`` restores both to resume a run exactly
 (``--resume-from``), or the weights alone with a fresh optimizer
@@ -30,31 +34,53 @@ MODEL_FILE = "model.pt"
 TRAIN_STATE_FILE = "train_state.pt"
 
 
+def _weights(module) -> dict:
+    return {k: v.detach().cpu().contiguous()
+            for k, v in module.state_dict().items()}
+
+
 def save_checkpoint(directory: str, model, optimizer,
                     epoch_number: Optional[int] = None,
-                    is_final: bool = False) -> str:
-    """Write ``directory/epoch_{NNN}`` (or ``directory/final``); returns its
+                    is_final: bool = False, disc=None,
+                    disc_optimizer=None) -> str:
+    """Write ``directory/epoch_{NNN}`` (or ``directory/final``), with the
+    discriminator ``disc`` and its optimizer where given; returns its
     path."""
     name = "final" if is_final else f"epoch_{epoch_number:03}"
     path = os.path.abspath(os.path.join(directory, name))
     os.makedirs(path, exist_ok=True)
     print(f"Saving model to:\n\t{path}")
-    weights = {k: v.detach().cpu().contiguous()
-               for k, v in model.state_dict().items()}
+    weights = _weights(model)
+    train_state = {"optimizer": optimizer.state_dict(), "epoch": epoch_number}
+    if disc is not None:
+        weights = {"model": weights, "disc": _weights(disc)}
+        train_state["disc_optimizer"] = disc_optimizer.state_dict()
     torch.save(weights, os.path.join(path, MODEL_FILE))
-    torch.save({"optimizer": optimizer.state_dict(), "epoch": epoch_number},
-               os.path.join(path, TRAIN_STATE_FILE))
+    torch.save(train_state, os.path.join(path, TRAIN_STATE_FILE))
     return path
 
 
-def load_checkpoint(path: str) -> tuple[dict, dict]:
-    """``(state_dict, train_state)`` of a checkpoint directory, on the
-    CPU."""
+def _is_adversarial(payload: dict) -> bool:
+    return "model" in payload and "disc" in payload
+
+
+def load_checkpoint(path: str, adversarial: bool = False) -> tuple:
+    """``(state_dict, train_state)`` of a checkpoint directory, on the CPU:
+    the model's weights (a discriminator's, where the checkpoint has one,
+    are left out).  With ``adversarial``, ``(state_dict, train_state,
+    disc_state_dict)``; a checkpoint without a discriminator raises."""
     def load(name):
         return torch.load(os.path.join(path, name), map_location="cpu",
                           weights_only=True)
 
-    return load(MODEL_FILE), load(TRAIN_STATE_FILE)
+    weights, train_state = load(MODEL_FILE), load(TRAIN_STATE_FILE)
+    if not adversarial:
+        return (weights["model"] if _is_adversarial(weights) else weights,
+                train_state)
+    if not _is_adversarial(weights):
+        raise ValueError(f"{path} holds no discriminator: an adversarial "
+                         f"run needs a checkpoint of one")
+    return weights["model"], train_state, weights["disc"]
 
 
 def _strip_ddp(state_dict: dict) -> dict:
@@ -67,6 +93,6 @@ def load_torch_checkpoint(path: str) -> tuple[dict, Optional[dict]]:
     ``module.`` prefix stripped (reference train/utils.py:328-330).  A file
     of the adversarial reference holds ``{"model": ..., "disc": ...}``."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    if "model" in payload and "disc" in payload:
+    if _is_adversarial(payload):
         return _strip_ddp(payload["model"]), _strip_ddp(payload["disc"])
     return _strip_ddp(payload), None

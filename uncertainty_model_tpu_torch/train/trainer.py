@@ -1,6 +1,6 @@
 """The self-supervised training loop (the port of the JAX package's
-``train/trainer.py``; reference train/train.py), without the adversarial
-branch, with evaluation and checkpoints between epochs.
+``train/trainer.py``; reference train/train.py), with evaluation and
+checkpoints between epochs.
 
 One step: the 4-scale image pyramid of the stereo pair, the model's
 train-mode forward on the left view (BatchNorm on batch statistics), the
@@ -12,15 +12,29 @@ set each step: the same update as the JAX package's
 ``optax.scale_by_adam`` times ``-lr`` (eps after the bias-corrected square
 root).
 
+With a discriminator (the CLI's ``--adversarial``) the loss adds the
+generator and perceptual terms, computed by a lagged clone of the
+discriminator (the reference's ``disc_clone``, train/train.py:107,151-152):
+a deep copy that takes no gradient, run in train mode, whose parameters
+are refreshed from the live discriminator every ``perceptual_update_freq``
+batches.  After the model's update the live discriminator takes its own
+Adam step on the real and the (detached) reconstructed pyramids.  The
+clone's BatchNorm buffers take its forwards' updates and are never read
+(train-mode BatchNorm normalises by the batch's statistics), as the JAX
+package discards them (its ``_apply_disc``); the live discriminator's
+move once a step.
+
 A model built with ``dtype=torch.bfloat16`` trains in the JAX package's
 mixed precision: its modules compute in bf16 while the parameters, their
 gradients (each cast back to f32 where a module cast its weight), the
 BatchNorm statistics and Adam stay f32; the disparities reach the warps
-and the losses in f32.
+and the losses in f32.  Adversarial training is f32 only: the JAX
+package's bf16 adversarial step does not run (see ``BF16_ADVERSARIAL``).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from typing import Callable, Optional
@@ -28,7 +42,7 @@ from typing import Callable, Optional
 import torch
 
 from ..device import resolve_device
-from ..losses import TukraUncertaintyLoss
+from ..losses import TukraUncertaintyLoss, discriminator_loss
 from ..ops import reconstruct_pyramid_with_lr, scale_pyramid
 from ..utils.progress import progress_bar
 from ..utils.schedules import adjust_disparity, learning_rate_for_epoch
@@ -36,24 +50,47 @@ from .checkpoint import save_checkpoint
 from .evaluate import evaluate_model
 
 _METRICS = ("disp_loss", "error_loss")
+BF16_ADVERSARIAL = (
+    "adversarial training runs in f32 only: the JAX package's bf16 "
+    "adversarial step fails (its losses/total.py:97-101 gates the "
+    "perceptual term with lax.cond, whose branches return bf16 and f32), "
+    "so it has no bf16 reference")
 
 
 class Trainer:
     """Trains ``model`` (the port's ``RandomlyConnectedModel``), moved to
     ``device`` (CUDA unless asked otherwise), under ``loss_config`` (the
-    config's ``loss:`` section)."""
+    config's ``loss:`` section); with ``disc`` (a ``RandomDiscriminator``)
+    adversarially, its lagged clone refreshed every
+    ``perceptual_update_freq`` batches."""
 
-    def __init__(self, model, loss_config: Optional[dict] = None, device=None,
-                 scales: int = 4) -> None:
+    def __init__(self, model, loss_config: Optional[dict] = None, disc=None,
+                 device=None, scales: int = 4,
+                 perceptual_update_freq: int = 10) -> None:
+        if disc is not None and (model.dtype is not None
+                                 or disc.dtype is not None):
+            raise NotImplementedError(BF16_ADVERSARIAL)
         self.device = resolve_device(device)
         self.model = model.to(self.device, memory_format=torch.channels_last)
         self.loss = TukraUncertaintyLoss(**(loss_config or {}))
         self.scales = scales
-        self.optimizer = self._adam()
+        self.perceptual_update_freq = perceptual_update_freq
+        self.optimizer = self._adam(self.model)
+        self.disc = self.disc_lag = self.disc_optimizer = None
+        if disc is not None:
+            self.disc = disc.to(self.device, memory_format=torch.channels_last)
+            self.disc_lag = self._lag()
+            self.disc_optimizer = self._adam(self.disc)
 
-    def _adam(self) -> torch.optim.Adam:
-        return torch.optim.Adam(self.model.parameters(), lr=0.0,
+    @staticmethod
+    def _adam(module) -> torch.optim.Adam:
+        return torch.optim.Adam(module.parameters(), lr=0.0,
                                 betas=(0.9, 0.999), eps=1e-8)
+
+    def _lag(self):
+        """A deep copy of the live discriminator (without its gradients)
+        that takes no gradient."""
+        return copy.deepcopy(self.disc).requires_grad_(False)
 
     def load_state(self, state_dict: dict, train_state: Optional[dict] = None,
                    disc_state_dict: Optional[dict] = None) -> int:
@@ -66,15 +103,32 @@ class Trainer:
         ``train_model(start_epoch=<returned epoch>)`` continues exactly as
         an uninterrupted run would.  Without it (``--finetune-from``) the
         weights alone are loaded and the optimizer starts afresh, the
-        reference's semantics (the JAX package's ``Trainer.load_state``)."""
-        if disc_state_dict is not None:
-            raise NotImplementedError(
-                "the discriminator belongs to a later slice of the port")
+        reference's semantics (the JAX package's ``Trainer.load_state``).
+
+        A trainer with a discriminator needs ``disc_state_dict`` (and, to
+        resume, the discriminator's Adam state in ``train_state``).  Its
+        lagged clone starts as a copy of the restored discriminator, as in
+        the JAX package: checkpoints do not hold the clone, so a resumed
+        adversarial run equals the JAX package's resumed run, and equals
+        an uninterrupted one only where the clone was last refreshed at
+        the checkpoint's step."""
+        if (disc_state_dict is None) != (self.disc is None):
+            raise ValueError(
+                "a discriminator's weights need a trainer with a "
+                "discriminator" if self.disc is None else
+                "this trainer has a discriminator: give its weights "
+                "(disc_state_dict)")
         self.model.load_state_dict(state_dict, strict=True)
-        self.optimizer = self._adam()
+        self.optimizer = self._adam(self.model)
+        if self.disc is not None:
+            self.disc.load_state_dict(disc_state_dict, strict=True)
+            self.disc_lag = self._lag()
+            self.disc_optimizer = self._adam(self.disc)
         if train_state is None:
             return 0
         self.optimizer.load_state_dict(train_state["optimizer"])
+        if self.disc is not None:
+            self.disc_optimizer.load_state_dict(train_state["disc_optimizer"])
         return int(train_state["epoch"] or 0)
 
     def _input(self, a) -> torch.Tensor:
@@ -84,9 +138,17 @@ class Trainer:
     def train_step(self, batch: dict, disp_scale: float, lr: float,
                    step_idx: int = 0) -> dict:
         """One optimisation step on ``batch`` (``left`` and ``right``, NHWC
-        (B, H, W, 3), numpy or tensors).  Returns the two losses as
-        0-dimensional device tensors; the parameters' ``.grad`` hold this
-        step's gradients until the next step."""
+        (B, H, W, 3), numpy or tensors); ``step_idx`` is the batch index
+        within the epoch.  Returns the losses as 0-dimensional device
+        tensors (``disc_loss`` too with a discriminator); the parameters'
+        ``.grad`` hold this step's gradients until the next step.
+
+        With a discriminator, in the JAX step's order: the loss with the
+        lagged clone's terms, the model's backward and Adam step; the live
+        discriminator's loss on ``[images; reconstructions]`` (one forward
+        at twice the batch, so its BatchNorm statistics move once), its
+        backward and Adam step; then, every ``perceptual_update_freq``
+        batches, the clone takes the updated parameters."""
         left, right = self._input(batch["left"]), self._input(batch["right"])
         image_pyramid = scale_pyramid(torch.cat([left, right], dim=-1),
                                       self.scales)
@@ -98,15 +160,40 @@ class Trainer:
         disparities = [d.permute(0, 2, 3, 1).float() for d in disparities]
         recon_pyramid, lr_pyramid = reconstruct_pyramid_with_lr(
             disparities, image_pyramid)
-        disp_loss, error_loss = self.loss(image_pyramid, disparities,
-                                          recon_pyramid, step=step_idx,
-                                          lr_pyramid=lr_pyramid)
+        lag = self.disc_lag
+        if lag is not None:
+            lag.train()
+        disp_loss, error_loss = self.loss(
+            image_pyramid, disparities, recon_pyramid, step=step_idx,
+            lr_pyramid=lr_pyramid, disc_apply=lag,
+            disc_features=None if lag is None else lag.features)
         (disp_loss + error_loss).backward()
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
-        return {"disp_loss": disp_loss.detach(),
-                "error_loss": error_loss.detach()}
+        metrics = {"disp_loss": disp_loss.detach(),
+                   "error_loss": error_loss.detach()}
+        if self.disc is not None:
+            metrics["disc_loss"] = self._disc_step(
+                image_pyramid, recon_pyramid, lr, step_idx)
+        return metrics
+
+    def _disc_step(self, image_pyramid, recon_pyramid, lr: float,
+                   step_idx: int) -> torch.Tensor:
+        self.disc.train()
+        self.disc_optimizer.zero_grad(set_to_none=True)
+        disc_loss = discriminator_loss(image_pyramid, recon_pyramid, self.disc,
+                                       len(image_pyramid[0]))
+        disc_loss.backward()
+        for group in self.disc_optimizer.param_groups:
+            group["lr"] = lr
+        self.disc_optimizer.step()
+        if step_idx % self.perceptual_update_freq == 0:
+            with torch.no_grad():
+                for lagged, live in zip(self.disc_lag.parameters(),
+                                        self.disc.parameters()):
+                    lagged.copy_(live)
+        return disc_loss.detach()
 
     def train_one_epoch(self, loader, disp_scale: float, lr: float,
                         epoch_number: Optional[int] = None, log_every: int = 0,
@@ -119,8 +206,11 @@ class Trainer:
         wait for each step.  ``pbar`` shows a ``tqdm`` bar, or where
         ``tqdm`` is not installed prints a line every ``log_every`` (else
         10) batches.  Returns the per-image average losses, as the
-        reference computes them (the sum of batch means over the images)."""
-        running = dict.fromkeys(_METRICS, 0.0)
+        reference computes them (the sum of batch means over the images):
+        ``disp``, ``unc`` and, with a discriminator, ``disc`` (else
+        None)."""
+        keys = _METRICS + (("disc_loss",) if self.disc is not None else ())
+        running = dict.fromkeys(keys, 0.0)
         n_images = 0
         averages = {"disp": float("nan"), "unc": float("nan"), "disc": None,
                     "scale": disp_scale}
@@ -134,14 +224,16 @@ class Trainer:
                 log_every = log_every or 10
 
         def drain():
-            fetched = torch.stack([torch.stack([m[k] for k in _METRICS])
+            fetched = torch.stack([torch.stack([m[k] for k in keys])
                                    for m in pending]).cpu().tolist()
             for row in fetched:
-                for key, value in zip(_METRICS, row):
+                for key, value in zip(keys, row):
                     running[key] += value
             pending.clear()
             return {"disp": running["disp_loss"] / n_images,
-                    "unc": running["error_loss"] / n_images, "disc": None,
+                    "unc": running["error_loss"] / n_images,
+                    "disc": (running["disc_loss"] / n_images
+                             if self.disc is not None else None),
                     "scale": disp_scale}
 
         drain_every = max(metrics_every, 1)
@@ -155,8 +247,9 @@ class Trainer:
                 continue
             averages = drain()
             if tepoch is not None:
-                tepoch.set_postfix(disp=averages["disp"], unc=averages["unc"],
-                                   scale=disp_scale)
+                shown = {k: averages[k] for k in ("disp", "unc", "disc")
+                         if averages[k] is not None}
+                tepoch.set_postfix(**shown, scale=disp_scale)
             elif progress is not None:
                 progress({"batch": i, **averages})
             elif log_every and (i + 1) % log_every == 0:
@@ -230,9 +323,11 @@ class Trainer:
             if (save_every is not None and (epoch + 1) % save_every == 0
                     and save_model_to is not None):
                 save_checkpoint(save_model_to, self.model, self.optimizer,
-                                epoch_number=epoch + 1)
+                                epoch_number=epoch + 1, disc=self.disc,
+                                disc_optimizer=self.disc_optimizer)
         print("Training completed.")
         if save_model_to is not None:
             save_checkpoint(save_model_to, self.model, self.optimizer,
-                            is_final=True)
+                            is_final=True, disc=self.disc,
+                            disc_optimizer=self.disc_optimizer)
         return training_losses, validation_metrics
