@@ -135,7 +135,7 @@ def test_reference_pt_with_ddp_prefix_loads(variables, tmp_path):
         assert torch.equal(v, sd[k]), k
 
 
-def test_adversarial_reference_pt_returns_both_and_the_trainer_refuses(
+def test_adversarial_reference_pt_returns_both_and_loads_into_a_trainer(
         variables, tmp_path):
     """A ``{"model", "disc"}`` file returns both dicts (prefixes stripped)
     and loads into a trainer with a discriminator (its lagged clone a copy

@@ -299,8 +299,7 @@ def _check_bf16_run(data_home, tmp_path):
      "losses/total.py:97-101"),
     (["--data-backend", "pil"], ValueError, "no PIL path"),
 ])
-def test_unported_options_are_refused(data_home, tmp_path, extra, error,
-                                      message):
+def test_refused_options_raise(data_home, tmp_path, extra, error, message):
     args = build_parser().parse_args(_argv(data_home, str(tmp_path), *extra))
     with pytest.raises(error, match=message):
         with contextlib.redirect_stdout(io.StringIO()):

@@ -170,7 +170,7 @@ def test_total_loss_with_fused_lr(cfg):
 
 
 @pytest.mark.parametrize("hook", ["disc_apply", "disc_features"])
-def test_total_loss_has_no_adversarial_branch_yet(hook):
+def test_total_loss_adversarial_terms_match_jax(hook):
     """The adversarial terms against the JAX package's, with the tiny
     discriminator in train mode on both sides (``TINY_LOSS``,
     ``perceptual_start`` 2): ``disc_apply`` at step 1 adds the generator

@@ -14,7 +14,13 @@ main.py)::
 The JAX CLI's flags and defaults, so ``results.json`` has the same
 ``arguments`` keys and the same schema.  It runs on CUDA unless
 ``--platform cpu`` is given, in one process (the loader's
-``shard_index=0, num_shards=1``).
+``shard_index=0, num_shards=1``), or in each process of a process group
+(``cli/parallel_main.py``): then each loads ``--batch-size // world``
+pairs a step from its shard (``shard_index=rank``), trains the global
+batch's step through ``Trainer(distributed=True)``, and rank 0's run
+folder (its timestamp, broadcast) is every rank's; rank 0 alone makes the
+directories and writes ``results.json``, the grids and the checkpoints
+(JAX ``cli/main.py:133-145,194-217``).
 
 ``--precision float32`` (the default) turns TF32 off for cuDNN and
 matmuls.  ``--precision bfloat16`` is the JAX CLI's mixed precision: the
@@ -179,12 +185,16 @@ def main(args: argparse.Namespace) -> None:
         default_augment_transform,
         default_eval_transform,
     )
+    from .. import parallel
     from ..device import resolve_device
     from ..models import RandomDiscriminator, RandomlyConnectedModel
     from ..train import Trainer
 
     _refuse_unported(args)
-    device = resolve_device(args.platform)
+    distributed = parallel.is_distributed()
+    rank, world = parallel.rank(), parallel.world_size()
+    device = (parallel.local_device(rank, args.platform) if distributed
+              else resolve_device(args.platform))
     dtype = _fix_precision(args.precision)
 
     print("Arguments passed:")
@@ -215,13 +225,17 @@ def main(args: argparse.Namespace) -> None:
           f"\n\tTrain: {len(train_dataset):,} images."
           f"\n\tTest: {len(val_dataset):,} images.")
 
-    train_loader = DataLoader(train_dataset, args.batch_size, shuffle=True,
+    # each process loads its shard's 1/world of every global batch
+    per_process_batch = args.batch_size // world
+    train_loader = DataLoader(train_dataset, per_process_batch, shuffle=True,
                               seed=args.seed, num_workers=args.workers,
-                              drop_last=True, backend=args.data_backend)
+                              drop_last=True, backend=args.data_backend,
+                              shard_index=rank, num_shards=world)
     # evaluation keeps the last partial batch
-    val_loader = DataLoader(val_dataset, args.batch_size, shuffle=False,
+    val_loader = DataLoader(val_dataset, per_process_batch, shuffle=False,
                             num_workers=args.workers, drop_last=False,
-                            backend=args.data_backend)
+                            backend=args.data_backend,
+                            shard_index=rank, num_shards=world)
 
     model = RandomlyConnectedModel.from_config(**config["model"], dtype=dtype,
                                                seed=args.seed, device=device)
@@ -230,7 +244,8 @@ def main(args: argparse.Namespace) -> None:
                                             init_seed=args.seed + 1,
                                             device=device)
             if args.adversarial else None)
-    trainer = Trainer(model, config["loss"], disc=disc, device=device)
+    trainer = Trainer(model, config["loss"], disc=disc, device=device,
+                      distributed=distributed)
     start_epoch = _restore(args, trainer)
 
     n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -242,13 +257,16 @@ def main(args: argparse.Namespace) -> None:
 
     date = datetime.now().strftime("%Y%m%d%H%M%S")
     folder = f"model_{date}"
+    if distributed:  # every rank writes into rank 0's folder
+        folder = parallel.broadcast_str(folder)
     model_directory = (os.path.join(args.save_model_to, folder)
                        if args.save_model_to else None)
     results_directory = (os.path.join(args.save_results_to, folder)
                          if args.save_results_to else None)
-    for d in (model_directory, results_directory):
-        if d:
-            os.makedirs(d, exist_ok=True)
+    if rank == 0:
+        for d in (model_directory, results_directory):
+            if d:
+                os.makedirs(d, exist_ok=True)
 
     training_losses, validation_metrics = trainer.train_model(
         train_loader, args.epochs, args.learning_rate,
@@ -263,7 +281,7 @@ def main(args: argparse.Namespace) -> None:
         start_epoch=start_epoch,
     )
 
-    if results_directory is not None:
+    if results_directory is not None and rank == 0:
         _write_results(results_directory, args, config,
                        training_losses, validation_metrics)
 

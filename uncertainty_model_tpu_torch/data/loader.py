@@ -78,6 +78,12 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def batch_sizes(self) -> list[int]:
+        """The sizes of the batches that iterating gives, in order."""
+        full, rest = divmod(len(self._shard_indices()), self.batch_size)
+        return [self.batch_size] * full + (
+            [rest] if rest and not self.drop_last else [])
+
     def _shard_indices(self) -> np.ndarray:
         n = len(self.dataset)
         order = np.arange(n)

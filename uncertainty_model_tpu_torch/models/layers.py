@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import reflect_pad2d, resize_bilinear
+from ..parallel.mesh import all_reduce_sum_autograd
 from .graph import GraphSpec, Node
 
 BN_EPS = 1e-5
@@ -142,27 +143,59 @@ class TorchBatchNorm(nn.BatchNorm2d):
     f32; the output is ``(x - mean) * inv + bias`` in ``dtype`` with
     ``inv = rsqrt(var + eps) * weight``, each operand cast to ``dtype``:
     three roundings where ``F.batch_norm`` rounds once.  The parameters,
-    buffers and their names are ``nn.BatchNorm2d``'s, in f32."""
+    buffers and their names are ``nn.BatchNorm2d``'s, in f32.
+
+    ``process_group`` (``parallel.sync_batchnorm`` sets it; None: this
+    process's batch alone): in train mode the statistics cover the rows
+    of every rank of the group, as the JAX package's do over the global
+    batch (layers.py:93-109): the mean over all rows first, then the
+    variance as the mean of ``(x - mean)^2``, Bessel's factor from the
+    global count, the running statistics moved once and alike on every
+    rank.  The sums are all-reduced with a backward that sums their
+    gradients over the ranks, so each rank's input gradient holds the
+    other ranks' terms.  The output is the explicit form above, in f32
+    too (JAX's f32 rounding, not ``F.batch_norm``'s)."""
 
     def __init__(self, num_features: int, dtype: torch.dtype | None = None):
         super().__init__(num_features, eps=BN_EPS, momentum=0.1)
         self.dtype = dtype
+        self.process_group = None
+
+    def _batch_statistics(self, x):
+        """(mean, biased variance, row count) of ``x`` in f32 over this
+        process's batch, or over every rank's with a process group (the
+        count then a tensor)."""
+        dims = (0, 2, 3)
+        xf = x.float()
+        n = x.numel() // x.shape[1]
+        group = self.process_group
+        if group is None:
+            mean = xf.mean(dims)
+            return mean, (xf - mean[:, None, None]).square().mean(dims), n
+        sums = all_reduce_sum_autograd(
+            torch.cat([xf.sum(dims), xf.new_full((1,), n)]), group)
+        n = sums[-1].detach()
+        mean = sums[:-1] / n
+        var = all_reduce_sum_autograd(
+            (xf - mean[:, None, None]).square().sum(dims), group) / n
+        return mean, var, n
 
     def forward(self, x):
         dt = self.dtype
-        if dt is None:
+        if dt is None and self.process_group is None:
             return super().forward(x)
+        dt = dt or torch.float32
         if self.training:
-            dims = (0, 2, 3)
-            xf = x.float()
-            mean = xf.mean(dims)
-            var = (xf - mean[:, None, None]).square().mean(dims)
-            n = x.numel() // x.shape[1]
+            mean, var, n = self._batch_statistics(x)
             with torch.no_grad():
                 m = self.momentum
+                if isinstance(n, int):
+                    bessel = n / (n - 1) if n > 1 else 1.0
+                else:  # f32(n / (n - 1)) of the global count, as JAX's
+                    n = n.double()
+                    bessel = torch.where(n > 1, n / (n - 1), 1.0).float()
                 self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(
-                    var * (n / (n - 1) if n > 1 else 1.0), alpha=m)
+                self.running_var.mul_(1 - m).add_(var * bessel, alpha=m)
                 self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean, self.running_var

@@ -30,6 +30,8 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
+
 MODEL_FILE = "model.pt"
 TRAIN_STATE_FILE = "train_state.pt"
 
@@ -45,18 +47,22 @@ def save_checkpoint(directory: str, model, optimizer,
                     disc_optimizer=None) -> str:
     """Write ``directory/epoch_{NNN}`` (or ``directory/final``), with the
     discriminator ``disc`` and its optimizer where given; returns its
-    path."""
+    path.  In a process group rank 0 alone writes (every rank holds the
+    same state), and every rank waits for it before going on."""
     name = "final" if is_final else f"epoch_{epoch_number:03}"
     path = os.path.abspath(os.path.join(directory, name))
-    os.makedirs(path, exist_ok=True)
-    print(f"Saving model to:\n\t{path}")
-    weights = _weights(model)
-    train_state = {"optimizer": optimizer.state_dict(), "epoch": epoch_number}
-    if disc is not None:
-        weights = {"model": weights, "disc": _weights(disc)}
-        train_state["disc_optimizer"] = disc_optimizer.state_dict()
-    torch.save(weights, os.path.join(path, MODEL_FILE))
-    torch.save(train_state, os.path.join(path, TRAIN_STATE_FILE))
+    if parallel.rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        print(f"Saving model to:\n\t{path}")
+        weights = _weights(model)
+        train_state = {"optimizer": optimizer.state_dict(),
+                       "epoch": epoch_number}
+        if disc is not None:
+            weights = {"model": weights, "disc": _weights(disc)}
+            train_state["disc_optimizer"] = disc_optimizer.state_dict()
+        torch.save(weights, os.path.join(path, MODEL_FILE))
+        torch.save(train_state, os.path.join(path, TRAIN_STATE_FILE))
+    parallel.barrier()
     return path
 
 

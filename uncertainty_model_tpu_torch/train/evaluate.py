@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
 from ..losses import wssim_image_error
 from ..ops import resize_bilinear, warp_by_disparities
 from ..utils.progress import progress_bar
@@ -106,24 +107,50 @@ def evaluate_model(model, loader, save_evaluation_to: Optional[str] = None,
     """Returns ``((left_ssim, right_ssim), (ause, aurg))``: SSIM averaged
     per image, AUSE and AURG per batch (reference train/evaluate.py:66-196).
     The random curve's noise is drawn per batch by a ``torch.Generator`` on
-    the model's device seeded with ``seed``."""
+    the model's device seeded with ``seed``.
+
+    In a process group (``parallel``), every rank evaluates its shard and
+    the metrics are the global batch's, as the JAX package's
+    (evaluate.py:128-186): the SSIM sums over every rank's images divided
+    by the global count, AUSE and AURG of the global batch's curves (the
+    mean of the ranks', the shards being equal: the ranks first check that
+    they give the same batches, and raise if not).  The noise is drawn at
+    the global batch's shape on every rank, each taking its own rows in
+    rank order, so the metrics equal one process's on the concatenated
+    batches.  The first batch's tensors are gathered from every rank
+    (whether or not anything is saved: it is a collective), and rank 0
+    alone saves the grids and prints."""
     dev = _device_of(model)
     generator = torch.Generator(dev).manual_seed(seed)
     running = {"left_ssim": 0.0, "right_ssim": 0.0, "ause": 0.0, "aurg": 0.0}
     averages = dict(running)
+    world, rank = parallel.world_size(), parallel.rank()
+    distributed = parallel.is_distributed()
+    if distributed:
+        parallel.require_equal_shards(loader, "evaluation")
+    lead = rank == 0
 
-    tepoch = None if no_pbar else progress_bar(loader, "Evaluation")
+    tepoch = None if no_pbar or not lead else progress_bar(loader,
+                                                           "Evaluation")
     for i, batch in enumerate(loader if tepoch is None else tepoch):
         b, h, w = batch["left"].shape[:3]
-        noise = torch.rand((b, h, w, 2), generator=generator, device=dev)
+        noise = torch.rand((world * b, h, w, 2), generator=generator,
+                           device=dev)[rank * b:(rank + 1) * b]
         metrics, viz = eval_step(model, batch, scale, noise)
 
-        fetched = torch.stack([metrics[k] for k in running]).cpu().tolist()
+        values = torch.stack([metrics[k] for k in running])
+        if distributed:  # the SSIM sums summed, the curves' areas averaged
+            values = parallel.all_reduce_sum(values) / torch.tensor(
+                [1.0, 1.0, world, world], device=values.device)
+            if i == 0:
+                viz = {k: parallel.all_gather_rows(v) for k, v in viz.items()}
+        fetched = values.cpu().tolist()
         for key, value in zip(running, fetched):
             running[key] += value
+        n_images = (i + 1) * b * world
         averages = {
-            "left_ssim": running["left_ssim"] / ((i + 1) * b),
-            "right_ssim": running["right_ssim"] / ((i + 1) * b),
+            "left_ssim": running["left_ssim"] / n_images,
+            "right_ssim": running["right_ssim"] / n_images,
             "ause": running["ause"] / (i + 1),
             "aurg": running["aurg"] / (i + 1),
         }
@@ -132,10 +159,10 @@ def evaluate_model(model, loader, save_evaluation_to: Optional[str] = None,
                 ssim=(averages["left_ssim"] + averages["right_ssim"]) / 2,
                 ause=averages["ause"], aurg=averages["aurg"])
 
-        if save_evaluation_to is not None and i == 0:
+        if save_evaluation_to is not None and i == 0 and lead:
             save_comparisons(viz, save_evaluation_to, epoch_number, is_final)
 
-    if not no_pbar:
+    if not no_pbar and lead:
         print("Evaluation:"
               f"\n\tleft ssim: {averages['left_ssim']:.2f}"
               f"\n\tright ssim: {averages['right_ssim']:.2f}"

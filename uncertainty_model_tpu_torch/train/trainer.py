@@ -30,6 +30,20 @@ gradients (each cast back to f32 where a module cast its weight), the
 BatchNorm statistics and Adam stay f32; the disparities reach the warps
 and the losses in f32.  Adversarial training is f32 only: the JAX
 package's bf16 adversarial step does not run (see ``BF16_ADVERSARIAL``).
+
+``distributed=True`` (in a process group, ``parallel.init_distributed``)
+computes the JAX package's data-parallel step over every rank's batch
+together: the model and the live discriminator are each wrapped in
+``DistributedDataParallel``, which averages their gradients (every loss
+is a batch mean, so with equal shards the average of the ranks' means is
+the global batch's), and every ``TorchBatchNorm`` of the model, the live
+discriminator and the lagged clone takes the process group, so that its
+statistics (and their gradients) cover the global batch as GSPMD's do.
+``self.model`` and ``self.disc`` stay the unwrapped modules: checkpoints
+and ``state_dict`` keys are the serial run's.  The clone is not wrapped:
+it copies the live discriminator's parameters, which DDP keeps equal on
+every rank.  Each step's losses are the global batch's means on every
+rank.
 """
 
 from __future__ import annotations
@@ -37,10 +51,12 @@ from __future__ import annotations
 import copy
 import math
 import time
+import warnings
 from typing import Callable, Optional
 
 import torch
 
+from .. import parallel
 from ..device import resolve_device
 from ..losses import TukraUncertaintyLoss, discriminator_loss
 from ..ops import reconstruct_pyramid_with_lr, scale_pyramid
@@ -66,21 +82,51 @@ class Trainer:
 
     def __init__(self, model, loss_config: Optional[dict] = None, disc=None,
                  device=None, scales: int = 4,
-                 perceptual_update_freq: int = 10) -> None:
+                 perceptual_update_freq: int = 10,
+                 distributed: bool = False) -> None:
         if disc is not None and (model.dtype is not None
                                  or disc.dtype is not None):
             raise NotImplementedError(BF16_ADVERSARIAL)
         self.device = resolve_device(device)
-        self.model = model.to(self.device, memory_format=torch.channels_last)
+        self.group = parallel.world_group() if distributed else None
+        self.model = self._place(model)
         self.loss = TukraUncertaintyLoss(**(loss_config or {}))
         self.scales = scales
         self.perceptual_update_freq = perceptual_update_freq
         self.optimizer = self._adam(self.model)
         self.disc = self.disc_lag = self.disc_optimizer = None
         if disc is not None:
-            self.disc = disc.to(self.device, memory_format=torch.channels_last)
+            self.disc = self._place(disc)
             self.disc_lag = self._lag()
             self.disc_optimizer = self._adam(self.disc)
+        # DistributedDataParallel's wrappers, which the step calls where
+        # distributed (else None)
+        self.ddp_model = self._wrap(self.model)
+        self.ddp_disc = self._wrap(self.disc)
+
+    def _place(self, module):
+        """``module`` on the device; in a process group with its BatchNorm
+        layers on the global batch and its buffers rank 0's (DDP
+        broadcasts the parameters)."""
+        module = module.to(self.device, memory_format=torch.channels_last)
+        if self.group is not None:
+            parallel.sync_batchnorm(module, self.group)
+            parallel.broadcast_(module.buffers())
+        return module
+
+    def _wrap(self, module):
+        """``module`` in ``DistributedDataParallel`` where distributed (its
+        buffers move alike on every rank, so DDP need not broadcast them
+        each forward), else None."""
+        if module is None or self.group is None:
+            return None
+        with warnings.catch_warnings():  # newer torch renames the option
+            warnings.filterwarnings("ignore", ".*broadcast_buffers",
+                                    FutureWarning)
+            return torch.nn.parallel.DistributedDataParallel(
+                module, device_ids=([self.device]
+                                    if self.device.type == "cuda" else None),
+                broadcast_buffers=False, process_group=self.group)
 
     @staticmethod
     def _adam(module) -> torch.optim.Adam:
@@ -89,8 +135,10 @@ class Trainer:
 
     def _lag(self):
         """A deep copy of the live discriminator (without its gradients)
-        that takes no gradient."""
-        return copy.deepcopy(self.disc).requires_grad_(False)
+        that takes no gradient; its BatchNorm layers share the live one's
+        process group."""
+        memo = {} if self.group is None else {id(self.group): self.group}
+        return copy.deepcopy(self.disc, memo).requires_grad_(False)
 
     def load_state(self, state_dict: dict, train_state: Optional[dict] = None,
                    disc_state_dict: Optional[dict] = None) -> int:
@@ -154,8 +202,8 @@ class Trainer:
                                       self.scales)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        disparities = self.model(left.permute(0, 3, 1, 2),
-                                 disp_scale=disp_scale)
+        model = self.model if self.ddp_model is None else self.ddp_model
+        disparities = model(left.permute(0, 3, 1, 2), disp_scale=disp_scale)
         # the losses in f32, NHWC
         disparities = [d.permute(0, 2, 3, 1).float() for d in disparities]
         recon_pyramid, lr_pyramid = reconstruct_pyramid_with_lr(
@@ -176,13 +224,17 @@ class Trainer:
         if self.disc is not None:
             metrics["disc_loss"] = self._disc_step(
                 image_pyramid, recon_pyramid, lr, step_idx)
+        if self.group is not None:  # the global batch's means
+            metrics = dict(zip(metrics, parallel.all_reduce_mean(
+                torch.stack(list(metrics.values())))))
         return metrics
 
     def _disc_step(self, image_pyramid, recon_pyramid, lr: float,
                    step_idx: int) -> torch.Tensor:
         self.disc.train()
         self.disc_optimizer.zero_grad(set_to_none=True)
-        disc_loss = discriminator_loss(image_pyramid, recon_pyramid, self.disc,
+        disc = self.disc if self.ddp_disc is None else self.ddp_disc
+        disc_loss = discriminator_loss(image_pyramid, recon_pyramid, disc,
                                        len(image_pyramid[0]))
         disc_loss.backward()
         for group in self.disc_optimizer.param_groups:
@@ -208,7 +260,13 @@ class Trainer:
         10) batches.  Returns the per-image average losses, as the
         reference computes them (the sum of batch means over the images):
         ``disp``, ``unc`` and, with a discriminator, ``disc`` (else
-        None)."""
+        None).  Distributed, the batch means are the global batch's and
+        the images this process's own, as in the JAX package
+        (trainer.py:353-357); the ranks first check that their shards
+        give the same batches, and raise if not (one rank would wait for
+        the others in a collective)."""
+        if self.group is not None:
+            parallel.require_equal_shards(loader, "training")
         keys = _METRICS + (("disc_loss",) if self.disc is not None else ())
         running = dict.fromkeys(keys, 0.0)
         n_images = 0
@@ -288,7 +346,13 @@ class Trainer:
         ``profile_dir``: a ``torch.profiler`` trace of epoch 0 (host
         operators, and the device's kernels on CUDA), written there as a
         Chrome/TensorBoard trace (``*.pt.trace.json``) when the epoch
-        ends, after the device has finished its work."""
+        ends, after the device has finished its work.
+
+        Distributed, every rank evaluates (the metrics are collectives)
+        and returns the same lists; rank 0 alone prints, shows the
+        progress and writes (the comparison grids and the checkpoints,
+        which every rank waits for)."""
+        lead = parallel.rank() == 0
         training_losses, validation_metrics = [], []
         for epoch in range(start_epoch, epochs):
             lr = learning_rate_for_epoch(epoch, learning_rate, finetune)
@@ -302,30 +366,34 @@ class Trainer:
                 profiler.start()
             averages = self.train_one_epoch(
                 loader, disp_scale, lr, epoch_number=epoch + 1,
-                log_every=10 if no_pbar else 0, pbar=not no_pbar)
+                log_every=10 if no_pbar and lead else 0,
+                pbar=not no_pbar and lead)
             if profiler is not None:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 profiler.stop()
             training_losses.append(
                 (averages["disp"], averages["unc"], averages["disc"]))
-            print(f"Epoch #{epoch + 1}:"
-                  f"\n\tdisparity loss: {averages['disp']:.2e}"
-                  f"\n\tuncertainty loss: {averages['unc']:.2e}"
-                  f"\n\tdisparity scale: {disp_scale:.2f}"
-                  f"\n\ttime: {time.time() - t0:.1f}s")
+            if lead:
+                print(f"Epoch #{epoch + 1}:"
+                      f"\n\tdisparity loss: {averages['disp']:.2e}"
+                      f"\n\tuncertainty loss: {averages['unc']:.2e}"
+                      f"\n\tdisparity scale: {disp_scale:.2f}"
+                      f"\n\ttime: {time.time() - t0:.1f}s")
 
             if evaluate_every is not None and (epoch + 1) % evaluate_every == 0:
                 validation_metrics.append(evaluate_model(
                     self.model, val_loader,
                     save_evaluation_to=save_evaluation_to,
-                    epoch_number=epoch + 1, is_final=False, scale=disp_scale))
+                    epoch_number=epoch + 1, is_final=False, scale=disp_scale,
+                    no_pbar=not lead))
             if (save_every is not None and (epoch + 1) % save_every == 0
                     and save_model_to is not None):
                 save_checkpoint(save_model_to, self.model, self.optimizer,
                                 epoch_number=epoch + 1, disc=self.disc,
                                 disc_optimizer=self.disc_optimizer)
-        print("Training completed.")
+        if lead:
+            print("Training completed.")
         if save_model_to is not None:
             save_checkpoint(save_model_to, self.model, self.optimizer,
                             is_final=True, disc=self.disc,
