@@ -14,7 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``warp_rows`` forward and backward, grouped as the training step and
    the evaluation launch them); the decoder glue in bf16 bit for
    bit (``assemble_z``, ``gate_z``, ``assemble``), ``gate_z`` leaving
-   channels >= Cso unwritten (they hold NaN before and after);
+   channels >= Cso unwritten (they hold NaN before and after); the glue
+   also at the stages other build options fuse (``OPTION_GLUE_STAGES``:
+   dec0 and dec1, Cso 512 and 256 with no disparity; dec4 without the
+   fold);
 3. run the serving paths: the 22.5M-parameter flagship model's bf16 serving
    forward at 256x512, batch 8, from random weights made from a seed, with
    the kernel launch counters zeroed just before and read just after; the
@@ -23,7 +26,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    package's default encoder, ``s2d_stages=(0, 1)``, with each decoder
    pipeline: (a) gate_fold, 8 ``gated_conv_elu`` + 3 ``assemble_z``;
    (b) gate_z, 8 + 3 + 3 ``gate_z``; (c) squeeze_first, 8 + 3
-   ``se_squeeze`` + 3 ``assemble``.  Each also in f32 (TF32 off);
+   ``se_squeeze`` + 3 ``assemble``.  Each also in f32 (TF32 off).  Then
+   the build options of ``OPTION_PATHS`` (``fused_stages`` (0, ..., 4)
+   with each pipeline, (1, ..., 4) and (); ``dec_fold=False``,
+   ``smax`` "nomax" and "slice"; (0, ..., 4) with ``s2d_stages=(0, 1)``),
+   each count as listed there, bf16 and f32 (``elu_fold`` changes nothing
+   in the port, so it has no path of its own);
 3b. run the training path: ``Trainer.train_one_epoch`` of the flagship in
    f32 (TF32 off) at batch 8, 256x512, a few steps on one seeded stereo
    batch, counters zeroed just before and read after (5 forward and 5
@@ -100,8 +108,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    DDP's buckets + 1; the adversarial DDP step (every BatchNorm of the
    model, the discriminator and the clone synced; losses against the
    plain step's, 5 + 5 launches a step);
+3h. run training with the encoder's s2d stages (``s2d_stages=(0, 1)``,
+   f32, TF32 off): phase 3b's path (6 steps at batch 8 on one batch, the
+   loss must fall, 5 + 5 ``warp_rows`` launches a step and no other
+   kernel), then a batch-2 step against the direct model's from the same
+   weights on the card: the losses, the BatchNorm running statistics, the
+   model backward of an equal cotangent per parameter, the whole step's
+   median;
 4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
-   and (a) with ``s2d_conv_backend="lax"``), the training step and the
+   (a) with ``s2d_conv_backend="lax"``, ``fused_stages`` (0, ..., 4) and
+   (), ``smax="nomax"``; the glue kernels also at dec0 and dec1), the
+   training step (and the s2d one) and the
    eval step at batch 8 (each with the device's idle share), the bf16
    training step at batch 8 and 32 (with its device-busy time, idle
    share and peak memory), the adversarial f32 step at batch 8 (the same,
@@ -293,6 +310,42 @@ UPSAMPLE_SITES = (
     ("dec1_skip", 16, 32, 256),
 )
 
+# the flagship's stages that run the glue only under other build options
+# (name, H, W, Cso, Cu, Cd, cf): dec0 and dec1 under fused_stages=(0, ...,
+# 4), with no disparity to concat; dec4 under dec_fold=False (cf 0)
+OPTION_GLUE_STAGES = (
+    ("dec0", 16, 32, 512, 128, 0, 0),
+    ("dec1", 32, 64, 256, 64, 0, 0),
+    ("dec4_nofold", 256, 512, 32, 8, 4, 0),
+)
+TIMED_OPTION_GLUE_STAGES = OPTION_GLUE_STAGES[:2]
+
+# the serving forward's other build options, and the launches a forward
+# must make (every other serving kernel: 0)
+ALL_FUSED = (0, 1, 2, 3, 4)
+OPTION_PATHS = {
+    "fused_0-4": ({"fused_stages": ALL_FUSED}, {"assemble_z": 5}),
+    "fused_0-4_gate_z": ({"fused_stages": ALL_FUSED, "dec_pipeline": "gate_z"},
+                         {"assemble_z": 5, "gate_z": 5}),
+    "fused_0-4_squeeze_first": (
+        {"fused_stages": ALL_FUSED, "dec_pipeline": "squeeze_first"},
+        {"se_squeeze": 5, "assemble": 5}),
+    "fused_1-4": ({"fused_stages": (1, 2, 3, 4)}, {"assemble_z": 4}),
+    "fused_none": ({"fused_stages": ()}, {}),
+    "dec_fold_off": ({"dec_fold": False}, {"assemble_z": 3}),
+    "smax_nomax": ({"smax": "nomax"}, {"assemble_z": 3}),
+    "smax_slice": ({"smax": "slice"}, {"assemble_z": 3}),
+    "s2d_fused_0-4": ({"s2d_stages": (0, 1), "fused_stages": ALL_FUSED},
+                      {"gated_conv_elu": 8, "assemble_z": 5}),
+}
+TIMED_OPTION_PATHS = ("fused_0-4", "fused_none", "smax_nomax")
+
+# phase 3h: the training model with s2d encoder stages against the direct
+# model on the card.  BatchNorm's running statistics within the JAX s2d
+# test's limit for them (tests/test_s2d_training.py)
+S2D_TRAIN_STAGES = (0, 1)
+S2D_STATS_TOL = dict(rtol=2e-4, atol=1e-6)
+
 # the JAX package's default encoder with each decoder pipeline, and the
 # launches a forward must make (every other serving kernel: 0)
 S2D_PATHS = {
@@ -398,9 +451,9 @@ def check_assemble_z():
         assemble_z, assemble_z_plain)
 
     worst = 0.0
-    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES:
+    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES + OPTION_GLUE_STAGES:
         for dtype in (torch.bfloat16, torch.float32):
-            for with_disp in (True, False):
+            for with_disp in (True, False) if cd else (False,):
                 args = assemble_z_inputs(SEED + h, SMOKE_BATCH, h, w, cso, cu,
                                          cd if with_disp else 0, cf, dtype)
                 cat, mean = assemble_z(*args)
@@ -556,9 +609,9 @@ def check_decoder_glue():
         se_squeeze, se_squeeze_plain)
 
     worst = {"gate_z": 0.0, "se_squeeze": 0.0, "assemble": 0.0}
-    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES:
+    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES + OPTION_GLUE_STAGES:
         for dtype in (torch.bfloat16, torch.float32):
-            for with_disp in (True, False):
+            for with_disp in (True, False) if cd else (False,):
                 args = assemble_z_inputs(SEED + h + 1, SMOKE_BATCH, h, w, cso,
                                          cu, cd if with_disp else 0, cf, dtype)
                 se, skip, xc, disp, bias, k_fm = args
@@ -836,16 +889,17 @@ def run_main_path(model, counters):
     return launches, forward, x, ref
 
 
-def run_s2d_paths(model, counters, x, ref):
-    """Forwards (a), (b), (c) of ``S2D_PATHS`` at batch 8 on ``x``: bf16,
-    counters zeroed just before and read just after, each count as listed;
-    then f32 (TF32 off).  Both are held against the f32 eval model's
-    ``ref``.  Returns ({path: bf16 forward}, {path: launches}, {path: (bf16
-    err, f32 err)})."""
+def run_paths(model, counters, x, ref, paths):
+    """The forwards of ``paths`` (``S2D_PATHS``: (a), (b), (c); or
+    ``OPTION_PATHS``) at batch 8 on ``x``: bf16, counters zeroed just
+    before and read just after, each count as listed; then f32 (TF32
+    off).  Both are held against the f32 eval model's ``ref``.  Returns
+    ({path: bf16 forward}, {path: launches}, {path: (bf16 err, f32
+    err)})."""
     from uncertainty_model_tpu_torch.serving import make_serving_forward
 
     forwards, launches, errs = {}, {}, {}
-    for key, (options, expected) in S2D_PATHS.items():
+    for key, (options, expected) in paths.items():
         forward = make_serving_forward(model, dtype=torch.bfloat16, **options)
         for fn in counters.values():
             fn.launches = 0
@@ -886,33 +940,37 @@ def stereo_batch(batch, seed, device="cuda"):
         for side in ("left", "right")}
 
 
-def flagship_trainer(seed, device="cuda", dtype=None, distributed=False):
+def flagship_trainer(seed, device="cuda", dtype=None, distributed=False,
+                     s2d_stages=()):
     """The flagship in train mode from ``seed`` with ``FLAGSHIP_LOSS``,
     computing in ``dtype`` (None: f32); ``distributed``: DDP in the
-    process group (phase 3g)."""
+    process group (phase 3g); ``s2d_stages``: the encoder stages on the
+    space-to-depth grid (phase 3h; the same weights)."""
     from uncertainty_model_tpu_torch.config import FLAGSHIP_LOSS, FLAGSHIP_MODEL
     from uncertainty_model_tpu_torch.models import RandomlyConnectedModel
     from uncertainty_model_tpu_torch.train import Trainer
 
     model = RandomlyConnectedModel.from_config(**FLAGSHIP_MODEL, dtype=dtype,
-                                               seed=seed,
-                                               device=device).train()
+                                               seed=seed, device=device,
+                                               s2d_stages=s2d_stages).train()
     return Trainer(model, FLAGSHIP_LOSS, device=device,
                    distributed=distributed)
 
 
-def run_training_path(counters, dtype=None, distributed=False):
+def run_training_path(counters, dtype=None, distributed=False,
+                      s2d_stages=()):
     """``train_one_epoch`` over ``TRAIN_STEPS`` repeats of one batch, the
     losses read after every step, the model computing in ``dtype`` (None:
-    f32); every ``warp_rows`` counter must grow by its launches a step,
-    every other by none.  Returns (trainer, batch, disp_scale,
-    launches)."""
+    f32) with ``s2d_stages``; every ``warp_rows`` counter must grow by its
+    launches a step, every other by none.  Returns (trainer, batch,
+    disp_scale, launches)."""
     from uncertainty_model_tpu_torch.utils.schedules import adjust_disparity
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     disp_scale = adjust_disparity(0)
-    trainer = flagship_trainer(SEED, dtype=dtype, distributed=distributed)
+    trainer = flagship_trainer(SEED, dtype=dtype, distributed=distributed,
+                               s2d_stages=s2d_stages)
     batch = stereo_batch(TRAIN_BATCH, SEED + 4)
     seen = []
 
@@ -934,7 +992,8 @@ def run_training_path(counters, dtype=None, distributed=False):
         losses.append((avg * (i + 1) - previous) * TRAIN_BATCH)
         previous = avg * (i + 1)
     log(f"training path: flagship {dtype_name(dtype)}"
-        f"{' DDP' if distributed else ''} b{TRAIN_BATCH} "
+        f"{' DDP' if distributed else ''}"
+        f"{f' s2d_stages={s2d_stages}' if s2d_stages else ''} b{TRAIN_BATCH} "
         f"256x512, disp_scale {disp_scale}, lr {TRAIN_LR}: total loss per "
         "step " + ", ".join(f"{v:.6f}" for v in losses)
         + f"; launches {launches}")
@@ -2524,6 +2583,85 @@ def run_ddp_adversarial(counters, disp_scale):
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: training-mode s2d encoder stages
+# ---------------------------------------------------------------------------
+
+
+def bn_statistics(model):
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def check_s2d_step_against_direct(disp_scale):
+    """One step at batch ``CPU_CHECK_BATCH`` of the flagship with
+    ``S2D_TRAIN_STAGES`` against the direct model from the same weights,
+    both on the card, held as phase 3b holds the card against the CPU:
+    the losses within ``LOSS_RTOL``; the BatchNorm running statistics
+    within ``S2D_STATS_TOL``; the model backward of an equal cotangent per
+    parameter within max(GRAD_REL |g|, GRAD_FLOOR); the whole step's
+    gradients by their median within ``WHOLE_STEP_MEDIAN_REL``.  The two
+    run other convs (the s2d interiors are 5x5 and 3x3 convs of four times
+    the channels on the half-resolution grid), and the direct model's
+    stage-1 interiors are the 5x5 stride-1 convs whose cuDNN weight
+    gradient reads ~2e-3 from f64 (``CUDNN_LOSSY_KERNEL``, phase 3b): those
+    weights are the model backward's worst, read at 0.334 of the limit
+    (relative 1.67e-3; NVIDIA H100 80GB HBM3)."""
+    direct = flagship_trainer(SEED + 5)
+    s2d = flagship_trainer(SEED + 5, s2d_stages=S2D_TRAIN_STAGES)
+    batch = stereo_batch(CPU_CHECK_BATCH, SEED + 6)
+    want = direct.train_step(batch, disp_scale, 0.0)
+    got = s2d.train_step(batch, disp_scale, 0.0)
+    torch.cuda.synchronize()
+    result = {"loss_rel": 0.0}
+    for key in want:
+        w, g = want[key].item(), got[key].item()
+        rel_ = abs(g - w) / abs(w)
+        result["loss_rel"] = max(result["loss_rel"], rel_)
+        log(f"  {key}: s2d {g:.7f} direct {w:.7f} (rel {rel_:.3g}, limit "
+            f"{LOSS_RTOL})")
+        if not rel_ <= LOSS_RTOL:
+            fail(f"the s2d step's {key} differs from the direct step's")
+    stats_w, stats_g = bn_statistics(direct.model), bn_statistics(s2d.model)
+    worst_stat = max(
+        ((stats_g[k] - w).abs() / (S2D_STATS_TOL["atol"]
+                                   + S2D_STATS_TOL["rtol"] * w.abs())
+         ).max().item() for k, w in stats_w.items())
+    result["bn_statistics_worst_share"] = worst_stat
+    log(f"  BatchNorm running statistics ({len(stats_w)} buffers), s2d vs "
+        f"direct: worst at {worst_stat:.3g} of rtol "
+        f"{S2D_STATS_TOL['rtol']}, atol {S2D_STATS_TOL['atol']}")
+    if not worst_stat <= 1:
+        fail("the s2d step's BatchNorm statistics differ from the direct "
+             "step's")
+    share, median = grad_check(
+        {n: p.grad.cpu() for n, p in s2d.model.named_parameters()},
+        {n: p.grad.cpu() for n, p in direct.model.named_parameters()})
+    result.update(whole_step_worst_share=share, whole_step_median_rel=median)
+    log(f"  whole step, s2d vs direct gradients: median relative "
+        f"{median:.3g} (limit {WHOLE_STEP_MEDIAN_REL}); worst at {share:.3g}"
+        f" of max({GRAD_REL} |g|, {GRAD_FLOOR}) (reported)")
+    if not median <= WHOLE_STEP_MEDIAN_REL:
+        fail("the s2d step's gradients differ from the direct step's")
+    with torch.no_grad():
+        d_direct = step_disparities(direct, batch, disp_scale)
+    cot = loss_grad(direct, batch, d_direct)
+    worst = []
+    share, median = grad_check(
+        model_grads(s2d, batch, disp_scale, cot),
+        model_grads(direct, batch, disp_scale, cot), worst)
+    result.update(model_backward_worst_share=share,
+                  model_backward_median_rel=median,
+                  model_backward_worst=[(n, sh, r) for sh, r, n in worst])
+    log(f"  model backward of the same dL/dD, s2d vs direct: worst at "
+        f"{share:.3g} of max({GRAD_REL} |g|, {GRAD_FLOOR}), median relative "
+        f"{median:.3g}; the worst: " + "; ".join(
+            f"{n} at {sh:.3g} (relative {r:.3g})" for sh, r, n in worst))
+    if not share < 1:
+        fail("the s2d model's backward differs from the direct model's")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -2617,12 +2755,12 @@ def log_glue_row(kernel, row, extra=""):
         f"({row['bytes'] / 1e6:.1f} MB){extra}")
 
 
-def time_assemble_z():
+def time_assemble_z(stages=ASSEMBLE_Z_STAGES):
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble_z, assemble_z_plain)
 
     rows = []
-    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES:
+    for name, h, w, cso, cu, cd, cf in stages:
         args = assemble_z_inputs(SEED + 7, TIMING_BATCH, h, w, cso, cu, cd, cf,
                                  torch.bfloat16)
         k = time_ms(lambda: assemble_z(*args), reps=10)
@@ -3181,9 +3319,10 @@ def z_sector_bytes(b, h, w, ccat, cso, itemsize=2):
     return 2 * b * 32 * len(np.unique(z * itemsize // 32))
 
 
-def time_decoder_glue():
-    """``gate_z``, ``se_squeeze`` and ``assemble`` at the fused stages of a
-    forward at batch ``TIMING_BATCH`` in bf16, beside their plain versions
+def time_decoder_glue(stages=ASSEMBLE_Z_STAGES):
+    """``gate_z``, ``se_squeeze`` and ``assemble`` at ``stages`` (by
+    default the bench path's fused stages) at batch ``TIMING_BATCH`` in
+    bf16, beside their plain versions
     and, for ``gate_z``, ``cat[..., :cso].mul_(gates)`` (the plain version
     is that call too) and the bytes of the sectors its z lanes touch;
     ``se_squeeze`` and ``assemble`` have no single PyTorch call.
@@ -3195,7 +3334,7 @@ def time_decoder_glue():
         se_squeeze, se_squeeze_plain)
 
     rows = {"gate_z": [], "se_squeeze": [], "assemble": []}
-    for name, h, w, cso, cu, cd, cf in ASSEMBLE_Z_STAGES:
+    for name, h, w, cso, cu, cd, cf in stages:
         args = assemble_z_inputs(SEED + 8, TIMING_BATCH, h, w, cso, cu, cd, cf,
                                  torch.bfloat16)
         se, skip, xc, disp, bias, k_fm = args
@@ -3584,6 +3723,21 @@ def summed(rows, name, source, replaces, launches, worst, library,
     }
 
 
+def with_options(entry, option_launches, option_rows=()):
+    """A ``kernels`` line entry with its kernel's launches summed over the
+    option paths' bf16 forwards at batch 8 (``launches_options``), and,
+    where given, its times at the option stages (dec0 and dec1, one call
+    each at batch ``TIMING_BATCH``) summed."""
+    entry["launches_options"] = sum(
+        counts[entry["name"]] for counts in option_launches.values())
+    if option_rows:
+        entry["dec0_dec1"] = {
+            "stages": [r["stage"] for r in option_rows],
+            **{key: sum(r[key] for r in option_rows)
+               for key in ("ms", "plain_ms", "bound_ms")}}
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3628,8 +3782,11 @@ def main() -> int:
     phase("3: serving paths")
     model = flagship_model()
     launches, forward, x8, ref = run_main_path(model, serving_counters)
-    s2d_forwards, s2d_launches, s2d_errs = run_s2d_paths(
-        model, serving_counters, x8, ref)
+    s2d_forwards, s2d_launches, s2d_errs = run_paths(
+        model, serving_counters, x8, ref, S2D_PATHS)
+    option_forwards, option_launches, option_errs = run_paths(
+        model, serving_counters, x8, ref, OPTION_PATHS)
+    option_forwards = {k: option_forwards[k] for k in TIMED_OPTION_PATHS}
     del x8, ref
 
     phase("3b: training path")
@@ -3687,6 +3844,12 @@ def main() -> int:
     del ddp_adv_trainer
     torch.cuda.empty_cache()
 
+    phase("3h: training-mode s2d encoder stages")
+    s2d_trainer, s2d_batch, _, s2d_train_launches = run_training_path(
+        all_counters, s2d_stages=S2D_TRAIN_STAGES)
+    s2d_vs_direct = check_s2d_step_against_direct(disp_scale)
+    torch.cuda.empty_cache()
+
     phase("4: times")
     fwd = time_forward(forward)
     s2d_fwd = {key: time_forward(f, f"({key}) {S2D_PATHS[key][0]}")
@@ -3695,11 +3858,16 @@ def main() -> int:
         make_serving_forward(model, dtype=torch.bfloat16, s2d_stages=(0, 1),
                              s2d_conv_backend="lax"),
         "(a) with s2d_conv_backend='lax'")
+    option_fwd = {key: time_forward(f, f"{key} {OPTION_PATHS[key][0]}")
+                  for key, f in option_forwards.items()}
+    del option_forwards
     stages = time_assemble_z()
+    option_stages = time_assemble_z(TIMED_OPTION_GLUE_STAGES)
     conv_build = conv_build_report()
     conv_rows = time_gated_conv()
     glue_build = glue_build_report()
     glue_rows = time_decoder_glue()
+    option_glue_rows = time_decoder_glue(TIMED_OPTION_GLUE_STAGES)
     x = images(TIMING_BATCH, SEED + 3)
     breakdown = profile_device_time(lambda: forward(x),
                                     f"serving forward b{TIMING_BATCH}")
@@ -3710,6 +3878,9 @@ def main() -> int:
     del x, s2d_forwards
     torch.cuda.empty_cache()
     step = time_train_step(trainer, batch, disp_scale)
+    s2d_step = time_train_step(s2d_trainer, s2d_batch, disp_scale,
+                               label=f"f32 s2d_stages={S2D_TRAIN_STAGES}")
+    del s2d_trainer, s2d_batch
     ddp_step = time_train_step(ddp_trainer, batch, disp_scale,
                                label="f32 DDP (world 1)")
     ddp_breakdown = profile_device_time(
@@ -3741,6 +3912,14 @@ def main() -> int:
     upsample_rows = time_upsample2x2()
     log(json.dumps({"forward": fwd, "s2d_forwards": s2d_fwd,
                     "s2d_vs_eval_model": s2d_errs,
+                    "option_forwards": option_fwd,
+                    "option_launches": option_launches,
+                    "option_vs_eval_model": option_errs,
+                    "option_assemble_z_stages": option_stages,
+                    "option_decoder_glue_stages": option_glue_rows,
+                    "s2d_training": {"launches": s2d_train_launches,
+                                     "vs_direct": s2d_vs_direct,
+                                     "train_step": s2d_step},
                     "assemble_z_stages": stages,
                     "gated_conv_elu_shapes": conv_rows,
                     "gated_conv_elu_build": conv_build,
@@ -3778,9 +3957,10 @@ def main() -> int:
 
     csrc = "uncertainty_model_tpu_torch/csrc/"
     pallas = "uncertainty_model_tpu/ops/pallas/"
-    kernels = [summed(stages, "assemble_z", csrc + "assemble_z.cu",
-                      pallas + "decoder_fused.py:250", launches["assemble_z"],
-                      worst, library=False)]
+    kernels = [with_options(
+        summed(stages, "assemble_z", csrc + "assemble_z.cu",
+               pallas + "decoder_fused.py:250", launches["assemble_z"],
+               worst, library=False), option_launches, option_stages)]
     # warp_rows: launches counts the whole epoch's; the times cover the 5
     # grouped launches of one training step; the library call is
     # grid_sample (its backward op for the backward) on each problem
@@ -3800,6 +3980,7 @@ def main() -> int:
             "launches_ddp": ddp_launches[name],
             "launches_ddp_adversarial": ddp_adv["launches"][name],
             "launches_cli_parallel": parallel_cli["launches"][name],
+            "launches_s2d_training": s2d_train_launches[name],
             "timed_launches": sum(r["launches_per_step"] for r in warps),
             "timed_unit": f"one training step at batch {TRAIN_BATCH}",
             "max_abs_err": warp_worst[d],
@@ -3814,13 +3995,15 @@ def main() -> int:
     # path that runs each, (a), (b) or (c) of S2D_PATHS
     for name, path, line in (("gate_z", "b", 360), ("se_squeeze", "c", 448),
                              ("assemble", "c", 581)):
-        kernels.append(summed(
+        kernels.append(with_options(summed(
             glue_rows[name], name, csrc + "decoder_fused.cu",
             pallas + f"decoder_fused.py:{line}", s2d_launches[path][name],
-            glue_worst[name], library=name == "gate_z"))
-    kernels.append(summed(
+            glue_worst[name], library=name == "gate_z"), option_launches,
+            option_glue_rows[name]))
+    kernels.append(with_options(summed(
         conv_rows, "gated_conv_elu", csrc + "gated_conv_elu.cu", pallas + "conv.py:179",
-        s2d_launches["a"]["gated_conv_elu"], conv_worst, library=True))
+        s2d_launches["a"]["gated_conv_elu"], conv_worst, library=True),
+        option_launches))
     # conv_elu and upsample2x2: no path of the package launches them (0 in
     # every path's run above); the times sum one call at each shape
     kernels.append(summed(

@@ -303,3 +303,63 @@ def test_gate_z_and_assemble_reject_bad_shapes(bad):
             tdf.assemble(se, skip, gates[:, :-1], xc, disp, bias)
         else:
             tdf.gate_z(cat, gates, cat.shape[-1] + 1)
+
+
+# dec0- and dec1-like stages (fused_stages=(0, ..., 4)): no disparity to
+# concat, no fold, Cso 8x and 4x the tiny stages' 16
+WIDE = {
+    "dec0_like": dict(b=2, h2=2, w2=4, cso=128, cu=32, cd=0),
+    "dec1_like": dict(b=2, h2=4, w2=8, cso=64, cu=16, cd=0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["assemble_z", "gate_z", "se_squeeze",
+                                    "assemble"])
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_wide_plain_matches_jax_pallas_interpret(case, kernel, dtype,
+                                                 interpret):
+    """Each kernel's plain version against the JAX Pallas kernel in
+    interpret mode on the same inputs: f32 within rtol 1e-4, atol 1e-5;
+    bf16 within ``BF16_JAX_TOL`` (the JAX package rounds each bf16 step;
+    gate_z, one product a lane, bit for bit)."""
+    shape = WIDE[case]
+    args = _inputs(70, **shape)
+    gates = np.random.default_rng(70).uniform(
+        0.1, 1.0, (shape["b"], shape["cso"])).astype(np.float32)
+    if dtype == "bf16":
+        (se, skip, xc, disp, bias, k_fm), jargs = _bf16(args)
+        tgates = torch.from_numpy(gates).bfloat16()
+        jgates = jnp.asarray(gates).astype(jnp.bfloat16)
+        tol, mean_tol = BF16_JAX_TOL, dict(rtol=0, atol=BF16_JAX_MEAN_ATOL)
+    else:
+        se, skip, xc, disp, bias, k_fm = _torch(args)
+        jargs = _jax(args)
+        tgates, jgates = torch.from_numpy(gates), jnp.asarray(gates)
+        tol = mean_tol = dict(rtol=1e-4, atol=1e-5)
+    jse, jskip, jxc, jdisp, jbias, _ = jargs
+    assert disp is None and k_fm is None
+    got_mean = want_mean = None
+    if kernel == "assemble_z":
+        got, got_mean = tdf.assemble_z_plain(se, skip, xc, None, bias)
+        want, want_mean = jdf.assemble_z(jse, jskip, jxc, None, jbias)
+    elif kernel == "gate_z":
+        cat, _ = tdf.assemble_z_plain(se, skip, xc, None, bias)
+        jcat = jnp.asarray(cat.float().numpy().copy()).astype(jgates.dtype)
+        # finish the JAX call before the port's gates cat in place
+        want = np.asarray(jdf.gate_z(jcat, jgates, shape["cso"]))
+        got = tdf.gate_z_plain(cat, tgates, shape["cso"])
+        tol = dict(rtol=0, atol=0)
+    elif kernel == "se_squeeze":
+        got = want = None
+        got_mean = tdf.se_squeeze_plain(se, skip, bias)
+        want_mean = jdf.se_squeeze(jse, jskip, jbias)
+    else:
+        got = tdf.assemble_plain(se, skip, tgates, xc, None, bias)
+        want = jdf.assemble(jse, jskip, jgates, jxc, None, jbias)
+    if got is not None:
+        assert got.shape[-1] == shape["cso"] + shape["cu"]
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    if got_mean is not None:
+        np.testing.assert_allclose(got_mean.numpy(), np.asarray(want_mean),
+                                   **mean_tol)

@@ -30,7 +30,15 @@ RAGGED = {
     "one_column": (8, 2, 8, 4, 0, 0),
     "cso48": (10, 18, 48, 4, 4, 0),
 }
-ALL = {**FLAGSHIP, **TINY, **RAGGED}
+# the flagship's stages that run the glue only under other build options:
+# dec0 and dec1 under fused_stages=(0, ..., 4) (no disparity to concat),
+# dec4 under dec_fold=False (the SE conv's feature-map half outside)
+OPTION_STAGES = {
+    "dec0": (16, 32, 512, 128, 0, 0),
+    "dec1": (32, 64, 256, 64, 0, 0),
+    "dec4_nofold": (256, 512, 32, 8, 4, 0),
+}
+ALL = {**FLAGSHIP, **OPTION_STAGES, **TINY, **RAGGED}
 MODES = sorted(tdf.ROW_MODES)
 
 
@@ -92,6 +100,29 @@ def test_plan_rows_f32_tiles_columns():
     assert sorted(set(s0)) == [0, 127] and sorted(set(ncur)) == [129]
 
 
+@pytest.mark.parametrize("stage,itemsize,cols,halo,vec,tiles", [
+    ("dec0", 2, 32, 16, 8, 1), ("dec0", 4, 8, 6, 4, 4),
+    ("dec1", 2, 64, 32, 8, 1), ("dec1", 4, 16, 10, 4, 4),
+    ("dec4_nofold", 2, 512, 256, 8, 1), ("dec4_nofold", 4, 256, 130, 4, 2),
+])
+def test_plan_rows_option_stages(stage, itemsize, cols, halo, vec, tiles):
+    """The tiles the card gets at dec0, dec1 and dec4 without the fold, in
+    every mode: bf16 whole rows; f32 at dec0 and dec1 column tiles of 8
+    and 16 (three staged skip rows of 512 or 256 f32 channels would take
+    more than their share of shared memory), and at dec4 two tiles as
+    with the fold."""
+    h, w, cso, cu, cd, cf = OPTION_STAGES[stage]
+    for mode in MODES:
+        plan = tdf.plan_rows(h, w, cso, cu, cd, cf, itemsize, mode)
+        assert (plan.cols, plan.halo_cols, plan.threads, plan.vec,
+                plan.tiles) == (cols, halo, 256, vec, tiles), mode
+    if tiles > 1:
+        r0, s0, ncur = tdf.row_staging(plan, h, w)
+        assert sorted(set(s0)) == [max(c // 2 - 1, 0)
+                                   for c in range(0, w, cols)]
+        assert ncur.max() <= halo
+
+
 def test_plan_rows_unaligned_se_fm():
     """se_fm off 16 bytes: one channel a thread (unless the stage folds a
     narrow feature map, read a channel at a time anyway), the same tiles."""
@@ -112,18 +143,21 @@ def test_plan_rows_odd_channels():
 # gate_z
 
 
-@pytest.mark.parametrize("stage", sorted(FLAGSHIP))
-def test_gate_z_walk_stores_the_z_block_once(stage):
-    """The flagship's stages, a slab cut for 1, 12 and 17 blocks (at batch
-    64 an H100 holds 12 blocks a slab at once)."""
-    h, w, cso, cu, cd, _ = FLAGSHIP[stage]
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("stage", sorted({**FLAGSHIP, **OPTION_STAGES}))
+def test_gate_z_walk_stores_the_z_block_once(stage, itemsize):
+    """The flagship's stages (dec0 and dec1: Ccat 640 and 320), a slab cut
+    for 1, 12 and 17 blocks (at batch 64 an H100 holds 12 blocks a slab at
+    once)."""
+    h, w, cso, cu, cd, _ = {**FLAGSHIP, **OPTION_STAGES}[stage]
     ccat = cso + cu + cd
-    plan = tdf.plan_gate_z(64, h, w, ccat, 2)
-    assert (plan.vec, plan.threads, plan.in_flight) == (8, 256, 4)
+    plan = tdf.plan_gate_z(64, h, w, ccat, itemsize)
+    assert (plan.vec, plan.threads, plan.in_flight) == (16 // itemsize, 256,
+                                                        4)
     n = h * w * ccat
     for per_batch in (1, 12, 17):
         chunk, blocks = tdf.gate_z_chunk(plan, n, per_batch)
-        assert chunk % 8 == 0 and blocks <= per_batch
+        assert chunk % plan.vec == 0 and blocks <= per_batch
         stores = tdf.gate_z_walk(plan, n, ccat, cso, per_batch=per_batch)
         np.testing.assert_array_equal(stores, np.arange(n) % ccat < cso)
 

@@ -3,7 +3,8 @@
 inputs (the bench path ``s2d_stages=()``, the space-to-depth stages and
 every decoder pipeline, and attention logits scaled up to where the JAX
 package's max-free softmax overflows), and the port's hygiene: no JAX,
-CUDA by default, unported options refused."""
+CUDA by default, refused option values.  The other build options are
+tests/test_torch_serving_options.py's."""
 
 import ast
 import functools
@@ -166,11 +167,14 @@ def test_default_device_is_cuda(models):
 
 
 @pytest.mark.parametrize("option", [
-    {"s2d_conv_backend": "cudnn"}, {"fused_stages": ()},
-    {"fused_stages": (1, 2, 3, 4)}, {"dec_pipeline": "gate_fold_z"},
-    {"s2d_attention": "phase"}, {"elu_fold": True},
+    {"s2d_conv_backend": "cudnn"}, {"fused_stages": (0, 1, 3)},
+    {"decoder_backend": "cmajor"}, {"dec_pipeline": "gate_fold_z"},
+    {"s2d_attention": "phase"}, {"smax": "max"},
 ])
 def test_off_path_options_raise(models, option):
+    """Values off every path the port (and the JAX package) can run are
+    refused: unknown names, and a fused set whose unfused stage follows a
+    fused one (tests/test_torch_serving_options.py)."""
     with pytest.raises(ValueError):
         make_serving_forward(models[2], torch.float32, device="cpu", **option)
 

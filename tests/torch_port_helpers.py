@@ -57,7 +57,14 @@ CONV_SE_MODEL = {
                            for d in TINY_MODEL["decoder"]["layers"]]},
 }
 
-CONFIGS = {"fc": PORT_MODEL, "conv_se": CONV_SE_MODEL}
+# tests/test_s2d_training.py's config: the tiny config with the flagship's
+# kernel sizes (7, 5) in the first two stages, which training may run on
+# the space-to-depth grid
+S2D_TRAINING_MODEL = {"encoder": PORT_MODEL["encoder"],
+                      "decoder": TINY_MODEL["decoder"]}
+
+CONFIGS = {"fc": PORT_MODEL, "conv_se": CONV_SE_MODEL,
+           "s2d_training": S2D_TRAINING_MODEL}
 
 torch.set_num_threads(2)
 
@@ -76,10 +83,10 @@ def to_nhwc_numpy(x: torch.Tensor) -> np.ndarray:
     return x.permute(0, 2, 3, 1).float().numpy()
 
 
-def port_model(cfg, variables, dtype=None):
+def port_model(cfg, variables, dtype=None, s2d_stages=()):
     """The port's eval model on the CPU, loaded from JAX variables, with
-    compute type ``dtype``."""
-    model = RandomlyConnectedModel(**cfg, dtype=dtype)
+    compute type ``dtype`` (and the encoder's ``s2d_stages``)."""
+    model = RandomlyConnectedModel(**cfg, dtype=dtype, s2d_stages=s2d_stages)
     model.load_state_dict(from_jax_variables(variables), strict=True)
     return model.to(memory_format=torch.channels_last).eval()
 

@@ -16,11 +16,14 @@ class RandomEncoder(nn.Module):
     """Built from the config's ``encoder`` section (``layers`` per-stage
     dicts plus ``load_graph``/``nodes``/``seed``; stage graphs count from
     1, reference model/encoder.py:33-36).  ``dtype``: the stages' compute
-    type, to which the input is cast (JAX encoder.py:77-78)."""
+    type, to which the input is cast (JAX encoder.py:77-78).
+    ``s2d_stages``: the stages whose interiors run on the space-to-depth
+    grid, where their kernel is 5 or more (JAX encoder.py:46-86)."""
 
     def __init__(self, layers: Sequence[dict], load_graph: Optional[str] = None,
                  nodes: int = 5, seed: int = 42,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 s2d_stages: Sequence[int] = ()):
         super().__init__()
         self.dtype = dtype
         self.graphs = tuple(
@@ -30,8 +33,9 @@ class RandomEncoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderStage(graph, cfg["in_channels"], cfg["out_channels"],
                          cfg["kernel_size"], heads=cfg.get("heads", 8),
-                         dtype=dtype)
-            for graph, cfg in zip(self.graphs, layers))
+                         dtype=dtype,
+                         s2d=i in s2d_stages and cfg["kernel_size"] >= 5)
+            for i, (graph, cfg) in enumerate(zip(self.graphs, layers)))
 
     def forward(self, x):
         if self.dtype is not None:

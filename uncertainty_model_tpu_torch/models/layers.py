@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import reflect_pad2d, resize_bilinear
+from ..ops.s2d import (depth_to_space, s2d_bias, s2d_conv_kernel,
+                       space_to_depth)
 from ..parallel.mesh import all_reduce_sum_autograd
 from .graph import GraphSpec, Node
 
@@ -84,9 +86,25 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1 / (1 + torch.exp(-x))
 
 
-def softmax_f32(v: torch.Tensor, dim: int) -> torch.Tensor:
-    """Softmax with the max subtracted and the sum taken in f32, returned
-    in ``v``'s type."""
+SMAX = ("window", "slice", "nomax")
+
+
+def softmax(v: torch.Tensor, dim: int, smax: str = "window") -> torch.Tensor:
+    """The serving softmax in one of the JAX package's formulations
+    (``serving.py::_grouped_softmax_unnorm``, ``_attention_apply``),
+    returned in ``v``'s type.
+
+    "window" and "slice" subtract the max and differ in the JAX package
+    only in the order of the group sums; here both are ``torch.softmax``
+    in f32, rounded once.  "nomax" drops the max at the JAX package's
+    rounding points: ``e = exp(v)`` in ``v``'s type, the sums in f32,
+    ``1 / s`` in f32 cast back.  Exact arithmetic gives the same softmax,
+    but ``exp`` overflows where a logit passes ~88 (f32's and bf16's
+    range), as the JAX package's does; nothing guards it."""
+    if smax == "nomax":
+        e = torch.exp(v)
+        return e * (1.0 / e.sum(dim, keepdim=True,
+                                dtype=torch.float32)).to(v.dtype)
     return torch.softmax(v, dim, dtype=torch.float32).to(v.dtype)
 
 
@@ -206,12 +224,25 @@ class TorchBatchNorm(nn.BatchNorm2d):
 
 class ConvBNELU(nn.Module):
     """Zero-pad conv -> BatchNorm -> ELU (reference model/layers/
-    encoder.py:21-52, ``ConvELUBlock``)."""
+    encoder.py:21-52, ``ConvELUBlock``).
+
+    ``s2d=True`` (a stride-1 interior conv; JAX ``models/layers.py:
+    112-174``): input and output are space-to-depth maps (``ops/s2d.py``,
+    channel ``phase * C + c``), the kernel is rewritten by
+    ``s2d_conv_kernel`` on every call, so that its gradient flows back
+    through the tap gather to the unchanged parameter, and BatchNorm sees
+    the phases as four more columns of each original channel: its
+    statistics, Bessel count and running update are the direct path's.
+    The parameters' names and shapes do not change."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, dtype: torch.dtype | None = None):
+                 stride: int = 1, dtype: torch.dtype | None = None,
+                 s2d: bool = False):
         super().__init__()
+        if s2d and stride != 1:
+            raise ValueError("the s2d conv is a stride-1 interior conv")
         self.dtype = dtype
+        self.s2d = s2d
         self.layers = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                       padding=(kernel_size - 1) // 2),
@@ -221,7 +252,21 @@ class ConvBNELU(nn.Module):
 
     def forward(self, x):
         conv, bn, elu = self.layers
-        return elu(bn(conv2d(conv, x, self.dtype)))
+        if not self.s2d:
+            return elu(bn(conv2d(conv, x, self.dtype)))
+        w = s2d_conv_kernel(conv.weight.permute(2, 3, 1, 0)).permute(
+            3, 2, 0, 1)
+        pad = (w.shape[-1] - 1) // 2
+
+        def fn(x, w, b):
+            return F.conv2d(x, w, b, padding=pad)
+
+        y = biased_conv(fn, x, w, s2d_bias(conv.bias), self.dtype)
+        # (B, h, w, 4C) NHWC viewed as (B, h, 4w, C): a free view of
+        # channels-last memory
+        b, c4, h, w = y.shape
+        y = elu(bn(nchw(nhwc(y).reshape(b, h, 4 * w, c4 // 4))))
+        return nchw(nhwc(y).reshape(b, h, w, c4))
 
 
 def _resize_reflect(x, target_h, target_w):
@@ -244,15 +289,18 @@ class NodeBlock(nn.Module):
     """
 
     def __init__(self, node: Node, in_channels: int, out_channels: int,
-                 kernel_size: int, dtype: torch.dtype | None = None):
+                 kernel_size: int, dtype: torch.dtype | None = None,
+                 s2d: bool = False):
         super().__init__()
         self.n_inputs = len(node.inputs)
         if self.n_inputs > 1:
             self.mean_weight = nn.Parameter(torch.ones(self.n_inputs))
         is_input = node.node_type == "input"
+        self.s2d = s2d and not is_input
         self.convolution = ConvBNELU(
             in_channels if is_input else out_channels, out_channels,
-            kernel_size, stride=2 if is_input else 1, dtype=dtype)
+            kernel_size, stride=2 if is_input else 1, dtype=dtype,
+            s2d=self.s2d)
 
     def forward(self, *inputs):
         if self.n_inputs > 1:
@@ -261,6 +309,9 @@ class NodeBlock(nn.Module):
             out = gates[0] * inputs[0]
             for i, x in enumerate(inputs[1:]):
                 if x.shape[2] != out.shape[2]:
+                    if self.s2d:
+                        raise ValueError("an s2d node's inputs must share "
+                                         "one resolution")
                     x = _resize_reflect(x, out.shape[2], out.shape[3])
                 out = out + gates[i] * x
         else:
@@ -269,18 +320,29 @@ class NodeBlock(nn.Module):
 
 
 class GraphBlock(nn.Module):
-    """Runs the DAG of NodeBlocks (reference model/layers/encoder.py:130-198)."""
+    """Runs the DAG of NodeBlocks (reference model/layers/encoder.py:130-198).
+
+    ``s2d=True``: the input nodes' stride-2 convs stay native and their
+    outputs go through ``space_to_depth``; the interior nodes run on the
+    s2d grid; the output goes back through ``depth_to_space``, so the
+    attention after it sees the native map."""
 
     def __init__(self, graph: GraphSpec, in_channels: int, out_channels: int,
-                 kernel_size: int, dtype: torch.dtype | None = None):
+                 kernel_size: int, dtype: torch.dtype | None = None,
+                 s2d: bool = False):
         super().__init__()
         self.graph = graph
+        self.s2d = s2d
         self.node_blocks = nn.ModuleList(
-            NodeBlock(node, in_channels, out_channels, kernel_size, dtype)
+            NodeBlock(node, in_channels, out_channels, kernel_size, dtype,
+                      s2d)
             for node in graph.nodes)
 
     def forward(self, x):
         results = {i: self.node_blocks[i](x) for i in self.graph.in_nodes}
+        if self.s2d:
+            results = {i: nchw(space_to_depth(nhwc(r)))
+                       for i, r in results.items()}
         for node in self.graph.nodes:
             if node.id not in results:
                 results[node.id] = self.node_blocks[node.id](
@@ -294,7 +356,8 @@ class GraphBlock(nn.Module):
             if r.shape[2] != out.shape[2]:
                 r = _resize_reflect(r, out.shape[2], out.shape[3])
             out = out + r
-        return out / len(self.graph.out_nodes)
+        out = out / len(self.graph.out_nodes)
+        return nchw(depth_to_space(nhwc(out))) if self.s2d else out
 
 
 class EfficientAttention(nn.Module):
@@ -332,14 +395,16 @@ class EfficientAttention(nn.Module):
 
 class EncoderStage(nn.Module):
     """GraphBlock + EfficientAttention (reference model/layers/
-    encoder.py:201-262)."""
+    encoder.py:201-262); ``s2d``: the GraphBlock's interior on the s2d
+    grid."""
 
     def __init__(self, graph: GraphSpec, in_channels: int, out_channels: int,
                  kernel_size: int, heads: int = 8,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, s2d: bool = False):
         super().__init__()
         self.layers = nn.Sequential(
-            GraphBlock(graph, in_channels, out_channels, kernel_size, dtype),
+            GraphBlock(graph, in_channels, out_channels, kernel_size, dtype,
+                       s2d),
             EfficientAttention(out_channels, out_channels, out_channels, heads,
                                dtype),
         )

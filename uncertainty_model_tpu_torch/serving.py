@@ -1,7 +1,8 @@
 """Serving forward of the eval model (the port of the JAX package's
 ``serving.py``): space-to-depth encoder stages or none, fused decoder
-stages (2, 3, 4), and the ``gate_fold``, ``gate_z`` and ``squeeze_first``
-decoder pipelines.
+stages (any suffix of the five), the ``gate_fold``, ``gate_z`` and
+``squeeze_first`` decoder pipelines, and the JAX package's other build
+options (``dec_fold``, ``elu_fold``, ``smax``, ``decoder_backend``).
 
 The build rewrites a model into inference-only parameters with transforms
 that are exact at eval time:
@@ -31,9 +32,18 @@ Decoder pipelines (``dec_pipeline``), as in the JAX package:
 * ``squeeze_first``: ``se_squeeze`` gives the SE mean, then ``assemble``
   writes the concat tensor once, already gated.
 
-Softmaxes subtract their max and sum in f32 (the JAX package's default
-drops the max; the two are equal in exact arithmetic and this one cannot
-overflow).
+``elu_fold`` is accepted and changes nothing: in the JAX package it hands
+a fused stage's ``out`` on before the iconv's ELU so that the consuming
+convs apply it, but every consumer here is a plain conv that takes the
+ELU'd tensor, so the port computes the ELU once, in the stage, and the
+result is the same tensor.
+
+Softmaxes subtract their max and sum in f32 by default (``smax="window"``;
+the JAX package's default, "nomax", drops the max: the two are equal in
+exact arithmetic, and only this one cannot overflow).
+
+The options are keyword arguments with the port's defaults; the port does
+not read the JAX package's ``UMT_*`` environment variables.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ import torch.nn.functional as F
 
 from .device import resolve_device
 from .models.graph import GraphSpec
-from .models.layers import nchw, nhwc, reflect_conv, softmax_f32
+from .models.layers import SMAX, nchw, nhwc, reflect_conv, softmax
 from .ops import resize_bilinear
 from .ops.conv import gated_conv_elu, gated_sum
 from .ops.decoder_fused import assemble, assemble_z, gate_z, se_squeeze
@@ -65,6 +75,7 @@ class EncoderSpec(NamedTuple):
     s2d_in: bool = False       # its input arrives in s2d form
     conv_backend: str = "pallas"   # s2d interiors: the kernel, or F.conv2d
     attn_native: bool = False  # s2d stage: depth_to_space before attention
+    smax: str = "window"       # the attention softmaxes' formulation
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +116,9 @@ def _oihw(w):
 @torch.no_grad()
 def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
                          s2d_stages=(), s2d_conv_backend="pallas",
-                         s2d_attention="s2d", dec_pipeline="gate_fold"):
+                         s2d_attention="s2d", fused_stages=FUSED_STAGES,
+                         decoder_backend="fused", dec_pipeline="gate_fold",
+                         dec_fold=True, elu_fold=False, smax="window"):
     """Fold ``model``'s weights into serving parameters of type ``dtype``
     on ``device`` (default: the model's).  Returns ``(specs, params)``:
     ``specs`` is static structure, ``params`` nested dicts of tensors.
@@ -114,15 +127,31 @@ def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
     s2d grid (see the module docstring); their interior kernels are HWIO
     for ``gated_conv_elu`` under ``s2d_conv_backend="pallas"`` and OIHW
     for ``F.conv2d`` under ``"lax"``.  ``s2d_attention="native"`` runs such
-    a stage's attention on the ``depth_to_space``'d map instead.  The
-    fused decoder stages' specs carry ``dec_pipeline``."""
+    a stage's attention on the ``depth_to_space``'d map instead.  Every
+    encoder spec carries ``smax``.
+
+    Decoder stage i is fused where ``i in fused_stages`` and its scale is
+    2 (JAX ``serving.py:301``); its spec says so (``fused``) and carries
+    ``dec_pipeline``, the fold (``dec_fold`` and a feature map of at most
+    8 channels).  ``elu_fold`` must be a bool and changes nothing (see the
+    module docstring).  A set where an unfused stage follows a
+    fused one raises ``ValueError``: the JAX package hands such a stage the
+    fused stage's whole concat tensor as its skip (``serving.py:904-906``)
+    and cannot trace it, so there is no reference to hold it against."""
     if s2d_conv_backend not in ("pallas", "lax"):
         raise ValueError(f"unknown s2d_conv_backend {s2d_conv_backend!r}")
     if s2d_attention not in ("s2d", "native"):
         raise ValueError(f"unknown s2d_attention {s2d_attention!r}")
+    if decoder_backend != "fused":
+        raise ValueError(f"unknown decoder_backend {decoder_backend!r} (the "
+                         "fused glue is the only decoder backend)")
     if dec_pipeline not in PIPELINES:
         raise ValueError(f"dec_pipeline {dec_pipeline!r} is not one of "
                          f"{PIPELINES}")
+    if smax not in SMAX:
+        raise ValueError(f"smax {smax!r} is not one of {SMAX}")
+    if not isinstance(elu_fold, bool):
+        raise ValueError(f"elu_fold {elu_fold!r} is not a bool")
     if device is None:
         device = next(model.parameters()).device
 
@@ -171,17 +200,21 @@ def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
             attn[name] = (put(w), put(b))
         enc_specs.append(EncoderSpec(graph_block.graph, attention.head_count,
                                      use_s2d, s2d_in, s2d_conv_backend,
-                                     attn_native))
+                                     attn_native, smax))
         enc_params.append({"nodes": nodes, "attention": attn})
         prev_s2d = use_s2d and not attn_native
 
     dec_specs, dec_params = [], []
     prev_fused_ccat = None
     for i, st in enumerate(model.decoder.layers):
-        fused = i in FUSED_STAGES
-        if fused and st.scale != 2:
-            raise ValueError(f"decoder stage {i} has scale {st.scale}; the "
-                             "fused stages need scale 2")
+        fused = i in fused_stages and st.scale == 2
+        if dec_specs and dec_specs[-1]["fused"] and not fused:
+            raise ValueError(
+                f"fused_stages {tuple(fused_stages)}: decoder stage {i} is "
+                f"not fused but follows the fused stage {i - 1}; the JAX "
+                "package passes such a stage the fused stage's whole concat "
+                "tensor as its skip (serving.py:904-906) and cannot trace "
+                "it, so the port refuses it")
         cf, cu, cso = (st.feature_in_channels, st.upsample_channels,
                        st.skip_out_channels)
         se_w, se_b = _conv_bn(st.squeeze_excite[0])
@@ -202,7 +235,7 @@ def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
             if prev_fused_ccat is not None:
                 se_skip = torch.cat([se_skip, se_skip.new_zeros(
                     cso, prev_fused_ccat - se_skip.shape[1], 1, 1)], dim=1)
-            spec["fold"] = cf <= FOLD_MAX_CHANNELS
+            spec["fold"] = dec_fold and cf <= FOLD_MAX_CHANNELS
             spec["pipeline"] = dec_pipeline
             prev_fused_ccat = ic_w.shape[1]
         if spec.get("fold"):
@@ -233,41 +266,44 @@ def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
 # ---------------------------------------------------------------------------
 
 
-def _attend(keys, queries, values, heads):
+def _attend(keys, queries, values, heads, smax, keys_smax=None):
     """EfficientAttention on (B, N, C) token maps: keys softmaxed over the
-    tokens, queries over each head's channels, per-head context."""
+    tokens (in ``keys_smax``'s formulation, default ``smax``), queries
+    over each head's channels (in ``smax``'s), per-head context."""
     b, n, c = keys.shape
 
     def split(t):
         return t.reshape(b, n, heads, c // heads)
 
-    keys = softmax_f32(split(keys), 1)
-    queries = softmax_f32(split(queries), -1)
+    keys = softmax(split(keys), 1, keys_smax or smax)
+    queries = softmax(split(queries), -1, smax)
     context = torch.einsum("bnhk,bnhv->bhkv", keys, split(values))
     return torch.einsum("bhkv,bnhk->bnhv", context, queries).reshape(b, n, c)
 
 
-def _attention(prm, heads, x):
+def _attention(prm, heads, x, smax):
     """EfficientAttention on folded params; 1x1 convs as token matmuls."""
     b, c, h, w = x.shape
     tokens = nhwc(x).reshape(b, h * w, c)
     keys, queries, values = (F.linear(tokens, *prm[name])
                              for name in ("keys", "queries", "values"))
-    attended = _attend(keys, queries, values, heads)
+    attended = _attend(keys, queries, values, heads, smax)
     out = F.linear(attended, *prm["reprojection"])
     return nchw(out.reshape(b, h, w, c)) + x
 
 
-def _attention_s2d(prm, heads, x):
+def _attention_s2d(prm, heads, x, smax):
     """EfficientAttention computed on an s2d map (B, h, w, 4C) NHWC: the
     block-diagonal projections act on each phase alone, so the projected
     maps, split into their phases, are the native token maps in another
-    order, and attention does not depend on the order of its tokens."""
+    order, and attention does not depend on the order of its tokens.  The
+    keys' softmax subtracts its max whatever ``smax`` is, as the JAX
+    package's ``_softmax_tokens_s2d`` does."""
     b, h, w, c4 = x.shape
     tokens = x.reshape(b, h * w, c4)
     keys, queries, values = (F.linear(tokens, *prm[name]).reshape(
         b, 4 * h * w, c4 // 4) for name in ("keys", "queries", "values"))
-    attended = _attend(keys, queries, values, heads)
+    attended = _attend(keys, queries, values, heads, smax, "window")
     return F.linear(attended.reshape(b, h * w, c4),
                     *prm["reprojection"]).reshape(b, h, w, c4) + x
 
@@ -338,8 +374,8 @@ def _encoder_stage_s2d(prm, spec: EncoderSpec, x):
     out = _out_mean(raw, graph.out_nodes)
     if spec.attn_native:
         return _attention(prm["attention"], spec.heads,
-                          nchw(depth_to_space(out)))
-    return nchw(_attention_s2d(prm["attention"], spec.heads, out))
+                          nchw(depth_to_space(out)), spec.smax)
+    return nchw(_attention_s2d(prm["attention"], spec.heads, out, spec.smax))
 
 
 def _encoder_stage(prm, spec: EncoderSpec, x):
@@ -358,7 +394,7 @@ def _encoder_stage(prm, spec: EncoderSpec, x):
         pad = (p["w"].shape[-1] - 1) // 2
         results[node.id] = F.elu(F.conv2d(h, p["w"], p["b"], padding=pad))
     return _attention(prm["attention"], spec.heads,
-                      _out_mean(results, graph.out_nodes))
+                      _out_mean(results, graph.out_nodes), spec.smax)
 
 
 def _se_gates(se, squeezed, dtype):
@@ -437,31 +473,36 @@ def _fused_stage(prm, spec, x, fm, skip, disparity, disp_scale):
 def make_serving_forward(model, dtype=torch.bfloat16, device=None, *,
                          s2d_stages=(), s2d_conv_backend="pallas",
                          s2d_attention="s2d", fused_stages=FUSED_STAGES,
-                         dec_pipeline="gate_fold", elu_fold=False):
+                         decoder_backend="fused", dec_pipeline="gate_fold",
+                         dec_fold=True, elu_fold=False, smax="window"):
     """Returns ``forward(x_nhwc, disp_scale=1.0)``: the full-resolution
     4-channel ``[l_disp, r_disp, l_unc, r_unc]`` map, (B, H, W, 4), of a
     (B, H, W, 3) image batch (the reference's eval output).
 
     Runs on CUDA unless ``device`` says otherwise; ``dtype`` is the type of
     the folded weights and activations.  The other arguments are the JAX
-    package's build options, with its meanings: ``s2d_stages``,
-    ``s2d_conv_backend`` ("pallas": the ``gated_conv_elu`` kernel; "lax":
-    ``F.conv2d``), ``s2d_attention`` ("s2d" | "native") and
-    ``dec_pipeline`` ("gate_fold" | "gate_z" | "squeeze_first").  The
-    defaults are the benchmarked path, ``s2d_stages=()`` and gate_fold; the
-    JAX package's own default is ``s2d_stages=(0, 1)``.  ``fused_stages``
-    other than (2, 3, 4) and ``elu_fold`` are not ported and raise
-    ``ValueError``.
+    package's build options, with its meanings (``build_serving_params``):
+    ``s2d_stages``, ``s2d_conv_backend`` ("pallas": the ``gated_conv_elu``
+    kernel; "lax": ``F.conv2d``), ``s2d_attention`` ("s2d" | "native"),
+    ``fused_stages`` (any set the JAX package can run: no unfused stage
+    after a fused one), ``decoder_backend`` ("fused"), ``dec_pipeline``
+    ("gate_fold" | "gate_z" | "squeeze_first"), ``dec_fold``,
+    ``elu_fold`` (a bool that changes nothing here) and ``smax``
+    ("window" | "slice" | "nomax").  Unknown
+    values raise ``ValueError``.  They are plain keyword arguments: the
+    JAX package's ``UMT_*`` environment variables are not read.  The
+    defaults are the benchmarked path, ``s2d_stages=()``, gate_fold and a
+    max-subtracting softmax ("window"); the JAX package's own defaults are
+    ``s2d_stages=(0, 1)`` and "nomax", which overflows at attention logits
+    above ~88.
     """
-    if tuple(fused_stages) != FUSED_STAGES:
-        raise ValueError(f"fused_stages must be {FUSED_STAGES}")
-    if elu_fold:
-        raise ValueError("elu_fold is not ported")
     dev = resolve_device(device)
     (enc_specs, dec_specs), params = build_serving_params(
         model, dtype, dev, s2d_stages=tuple(s2d_stages),
         s2d_conv_backend=s2d_conv_backend, s2d_attention=s2d_attention,
-        dec_pipeline=dec_pipeline)
+        fused_stages=tuple(fused_stages), decoder_backend=decoder_backend,
+        dec_pipeline=dec_pipeline, dec_fold=dec_fold, elu_fold=elu_fold,
+        smax=smax)
 
     @torch.no_grad()
     def forward(x_nhwc, disp_scale=1.0):
