@@ -49,6 +49,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    inputs and noise; ``Trainer.train_model`` for 2 epochs of 2 batches with
    an evaluation and a checkpoint every epoch, then ``final`` loaded into a
    fresh trainer, which must hold the same parameters and Adam moments;
+   then a run resumed from a JAX checkpoint: 3 adversarial steps of the
+   flagship and its discriminator at batch 8, their state laid out as the
+   JAX package's ``load_checkpoint`` restores one (numpy transposes, the
+   head at the 8x16 final map), converted by ``convert.from_jax_train_state``,
+   written and loaded into other weights, must equal the run's bit for
+   bit, and the next step too (the losses; the state after Adam steps on
+   the run's gradients; the resumed step's own gradients by their median:
+   the card's backward sums in no fixed order), with 5 + 5 ``warp_rows``
+   launches and nothing else;
 3d. run the training CLI (``cli.main.main``, in this process) on
    ``configs/uncertainty.yml`` at 256x512 from a da Vinci tree of
    1024x1280 PNGs written first (16 train, 12 test pairs; the PNG decode
@@ -115,7 +124,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    weights on the card: the losses, the BatchNorm running statistics, the
    model backward of an equal cotangent per parameter, the whole step's
    median;
-4. time the serving forwards at batch 64 (the bench path, (a), (b), (c),
+4. time the bench path also with the package's forward timer
+   (``utils/benchmark.py``: slopes of chained passes, 9 samples) at batch
+   64 and 128 (``bench.py``'s), printed as the ``serving_timer`` line beside
+   the 9 one-pass event timings at batch 64;
+   time the serving forwards at batch 64 (the bench path, (a), (b), (c),
    (a) with ``s2d_conv_backend="lax"``, ``fused_stages`` (0, ..., 4) and
    (), ``smax="nomax"``; the glue kernels also at dec0 and dec1), the
    training step (and the s2d one) and the
@@ -156,6 +169,7 @@ import copy
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -260,6 +274,8 @@ CLI_EPOCHS = 2
 CLI_WORKERS = 8         # --workers: the loader's decode threads
 LOADER_REPEAT = 4       # the timed loader's epoch: the training pairs 4 times
 EVAL_BATCH = 8      # the evaluation's batch (the CLI's default)
+CONVERT_STEPS = 3   # phase 3c's run before it is converted and resumed
+BENCH_BATCH = 128   # bench.py's batch: the timer's second batch
 EVAL_BATCHES = 2
 EVAL_SSIM_RTOL = 1e-4   # card eval step vs CPU, the summed SSIM of a view
 # card eval step vs CPU, AUSE and AURG: both average over 100 steps the
@@ -1306,6 +1322,285 @@ def run_train_model_with_checkpoints(counters, val_loader):
         fail("the final checkpoint does not restore the trained state")
     return {"seconds": seconds, "losses": losses, "metrics": metrics,
             "launches": launches, "checkpoints": names}
+
+
+# the port's state_dict in the JAX package's variable layout, by numpy
+# transposes (the inverse of convert.py's from_jax_variables and
+# from_jax_discriminator_variables): phase 3c writes the port's own run as
+# the JAX package's load_checkpoint would restore it
+BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+             "running_mean": ("batch_stats", "mean"),
+             "running_var": ("batch_stats", "var")}
+DECODER_CONVS = {"upsample.0": "upsample_conv",
+                 "squeeze_excite.0": "se_conv", "iconv": "iconv"}
+
+
+def conv_leaf(path, leaf, a):
+    """A conv's weight (OIHW -> HWIO) or bias at ``path``."""
+    if leaf == "weight":
+        return "params", (*path, "kernel"), np.transpose(a, (2, 3, 1, 0))
+    return "params", (*path, "bias"), a
+
+
+def bn_leaf(path, leaf, a):
+    collection, name = BN_LEAVES[leaf]
+    return collection, (*path, name), a
+
+
+def stage_entry(stage, rest, a):
+    """An encoder (or discriminator) stage's entry: its graph's node blocks
+    (``layers.0``) and attention (``layers.1``)."""
+    m = re.fullmatch(r"layers\.0\.node_blocks\.(\d+)\.(.+)", rest)
+    if m:
+        node = (*stage, "graph", f"node_{m[1]}")
+        if m[2] == "mean_weight":
+            return "params", (*node, "mean_weight"), a
+        c = re.fullmatch(r"convolution\.layers\.([01])\.(\w+)", m[2])
+        if c and c[1] == "0":
+            return conv_leaf((*node, "conv_block", "conv"), c[2], a)
+        if c:
+            return bn_leaf((*node, "conv_block", "bn"), c[2], a)
+    m = re.fullmatch(r"layers\.1\.(\w+)\.(weight|bias)", rest)
+    if m:
+        return conv_leaf((*stage, "attention", m[1]), m[2], a)
+    return None
+
+
+def decoder_entry(stage, rest, a):
+    m = re.fullmatch(r"(upsample\.0|squeeze_excite\.0|iconv)\.layers\."
+                     r"(0\.layers\.0|1)\.(\w+)", rest)
+    if m and m[2] == "1":
+        return bn_leaf((*stage, DECODER_CONVS[m[1]], "bn"), m[3], a)
+    if m:
+        return conv_leaf((*stage, DECODER_CONVS[m[1]], "conv_layer", "conv"),
+                         m[3], a)
+    m = re.fullmatch(r"squeeze_excite\.1\.excite\.([02])\.(weight|bias)",
+                     rest)
+    if m:
+        n = "1" if m[1] == "0" else "2"
+        if a.ndim == 2:   # fc: Dense (in, out)
+            return "params", (*stage, "se", f"fc{n}", "kernel"), a.T
+        return conv_leaf((*stage, "se", f"conv{n}"), m[2], a)
+    m = re.fullmatch(r"disp\.layers\.0\.(weight|bias)", rest)
+    if m:
+        return conv_leaf((*stage, "disp", "conv"), m[1], a)
+    return None
+
+
+def jax_entry(key, a, disc_hw=None):
+    """(collection, path, array) of the port's ``state_dict`` entry ``key``
+    in the JAX package's variables, or None for ``num_batches_tracked``
+    (the JAX package keeps no count).  ``disc_hw``: the discriminator's
+    final map, whose head the port flattens NCHW and the JAX package
+    NHWC."""
+    if key.endswith("num_batches_tracked"):
+        return None
+    entry = None
+    if key == "linear.weight" and disc_hw is not None:
+        h, w = disc_hw
+        c = a.shape[1] // (h * w)
+        entry = "params", ("linear", "kernel"), a.reshape(
+            -1, c, h, w).transpose(0, 2, 3, 1).reshape(a.shape[0], -1).T
+    elif key == "linear.bias" and disc_hw is not None:
+        entry = "params", ("linear", "bias"), a
+    elif m := re.fullmatch(r"encoder\.layers\.(\d+)\.(.+)", key):
+        entry = stage_entry(("encoder", f"stage_{m[1]}"), m[2], a)
+    elif m := re.fullmatch(r"decoder\.layers\.(\d+)\.(.+)", key):
+        entry = decoder_entry(("decoder", f"stage_{m[1]}"), m[2], a)
+    elif disc_hw is not None and (
+            m := re.fullmatch(r"(?:layers\.(\d+)|conv)\.(.+)", key)):
+        stage = f"stage_{m[1]}" if m[1] is not None else "final_conv"
+        entry = stage_entry((stage,), m[2], a)
+    if entry is None:
+        fail(f"no JAX layout for the port's {key}")
+    return entry
+
+
+def jax_variables(tensors, disc_hw=None):
+    """``tensors`` (a ``state_dict``, or a moment per parameter name) as
+    the JAX package's ``{"params", "batch_stats"}`` of numpy arrays."""
+    out = {"params": {}, "batch_stats": {}}
+    for key, t in tensors.items():
+        entry = jax_entry(key, t.detach().cpu().numpy(), disc_hw)
+        if entry is None:
+            continue
+        collection, path, a = entry
+        node = out[collection]
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return out
+
+
+def jax_train_state(trainer, disc_hw, steps, epoch):
+    """The trainer's model, discriminator and both Adams as the dict the
+    JAX package's ``load_checkpoint`` restores: optax ``scale_by_adam``'s
+    ``{"count", "mu", "nu"}``, the moments in the parameters' layout."""
+    state = {"epoch": epoch}
+    for prefix, module, optimizer, hw in (
+            ("", trainer.model, trainer.optimizer, None),
+            ("disc_", trainer.disc, trainer.disc_optimizer, disc_hw)):
+        variables = jax_variables(module.state_dict(), hw)
+        adam = {name: optimizer.state[p]
+                for name, p in module.named_parameters()}
+        counts = {s["step"].item() for s in adam.values()}
+        if counts != {float(steps)}:
+            fail(f"{prefix}optimizer steps {counts}, not {steps}")
+        state[f"{prefix}params"] = variables["params"]
+        state[f"{prefix}batch_stats"] = variables["batch_stats"]
+        state[f"{prefix}opt_state"] = {"count": np.int32(steps), **{
+            field: jax_variables({n: s[key] for n, s in adam.items()},
+                                 hw)["params"]
+            for field, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}}
+    return state
+
+
+def state_differences(a, b):
+    """Where trainers ``a`` and ``b`` differ: the model's and the
+    discriminator's parameters and BatchNorm statistics (not
+    ``num_batches_tracked``: a converted checkpoint writes 0, and a
+    momentum BatchNorm never reads it), the clone's parameters, and both
+    Adams' state (step, moments) and hyper-parameters but the learning
+    rate."""
+    diff = []
+    for label, x, y in (("model", a.model, b.model), ("disc", a.disc, b.disc)):
+        sx, sy = x.state_dict(), y.state_dict()
+        diff += [f"{label}.{k}" for k in sx
+                 if not k.endswith("num_batches_tracked")
+                 and not torch.equal(sx[k], sy[k])]
+    diff += [f"disc_lag.{k}" for (k, p), q in zip(
+        a.disc_lag.named_parameters(), b.disc_lag.parameters())
+        if not torch.equal(p, q)]
+    for label in ("optimizer", "disc_optimizer"):
+        sx = getattr(a, label).state_dict()
+        sy = getattr(b, label).state_dict()
+        if ([dict(g, lr=0) for g in sx["param_groups"]]
+                != [dict(g, lr=0) for g in sy["param_groups"]]):
+            diff.append(f"{label}.param_groups")
+        if sx["state"].keys() != sy["state"].keys():
+            diff.append(f"{label}.state")
+            continue
+        diff += [f"{label}.{i}.{k}" for i in sx["state"]
+                 for k in ("step", "exp_avg", "exp_avg_sq")
+                 if not torch.equal(sx["state"][i][k], sy["state"][i][k])]
+    return diff
+
+
+def optimizer_params(optimizer):
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def stepping_with(optimizer, grads, own):
+    """Make ``optimizer``'s next step use ``grads`` (one a parameter) in
+    place of its parameters' own gradients, which it appends to ``own``."""
+    step = optimizer.step
+
+    def stepped():
+        params = optimizer_params(optimizer)
+        own.append([p.grad.clone() for p in params])
+        for p, g in zip(params, grads):
+            p.grad.copy_(g)
+        del optimizer.step
+        return step()
+
+    optimizer.step = stepped
+
+
+def check_converted_resume(counters):
+    """A run resumed from a checkpoint of ``convert.from_jax_train_state``,
+    at flagship width with the discriminator (f32, b8, 256x512): the
+    port's run takes ``CONVERT_STEPS`` adversarial steps (the clone
+    refreshed at the last), its state is written as the JAX package's
+    ``load_checkpoint`` restores one (``jax_train_state``: numpy
+    transposes, the head at the 8x16 final map), converted, written with
+    ``write_checkpoint`` and loaded into a trainer of other weights.  Its
+    state must equal the run's bit for bit.  Then both take the next step
+    on one batch (the perceptual term live): the losses must be equal bit
+    for bit (the forward is deterministic), and the resumed trainer's Adam
+    steps, given the run's gradients, must leave both states equal bit for
+    bit.  The card's backward does not sum in a fixed order (cuDNN's
+    convolution backward, ``warp_rows``' shared atomics), so the resumed
+    step's own gradients are held against the run's by their median
+    (``WHOLE_STEP_MEDIAN_REL``, the card-vs-CPU limit).  The resumed step
+    launches 5 + 5 ``warp_rows`` and nothing else."""
+    import tempfile
+
+    from uncertainty_model_tpu_torch.config import (
+        FLAGSHIP_DISCRIMINATOR, FLAGSHIP_INPUT, FLAGSHIP_MODEL)
+    from uncertainty_model_tpu_torch.convert import (
+        discriminator_final_hw, from_jax_train_state)
+    from uncertainty_model_tpu_torch.train import load_checkpoint
+    from uncertainty_model_tpu_torch.train.checkpoint import write_checkpoint
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    disp_scale = adjust_scale()
+    disc_hw = discriminator_final_hw(FLAGSHIP_DISCRIMINATOR, FLAGSHIP_INPUT)
+    if disc_hw != (8, 16):
+        fail(f"the flagship discriminator's final map {disc_hw}")
+    run = adversarial_trainer(SEED + 60)
+    batches = [stereo_batch(TRAIN_BATCH, SEED + 61 + i)
+               for i in range(CONVERT_STEPS + 1)]
+    for i in range(CONVERT_STEPS):
+        run.train_step(batches[i], disp_scale, TRAIN_LR, i)
+    t0 = time.perf_counter()
+    restored = jax_train_state(run, disc_hw, CONVERT_STEPS, epoch=1)
+    converted = from_jax_train_state(restored, FLAGSHIP_MODEL,
+                                     FLAGSHIP_DISCRIMINATOR,
+                                     image_hw=FLAGSHIP_INPUT)
+    del restored
+    resumed = adversarial_trainer(SEED + 62)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_checkpoint(os.path.join(tmp, "epoch_001"), *converted)
+        del converted
+        epoch = resumed.load_state(*load_checkpoint(path, adversarial=True))
+    seconds = time.perf_counter() - t0
+    loaded = state_differences(run, resumed)
+    log(f"converted resume: flagship f32 b{TRAIN_BATCH} with the "
+        f"discriminator (final map {disc_hw[0]}x{disc_hw[1]}), "
+        f"{CONVERT_STEPS} steps, to the JAX layout, converted, written and "
+        f"loaded in {seconds:.1f} s: epoch {epoch}; state tensors differing "
+        f"from the run's {len(loaded)} {loaded[:5]}")
+    if epoch != 1 or loaded:
+        fail("the converted checkpoint does not resume the run's state")
+
+    batch, step_idx = batches[CONVERT_STEPS], CONVERT_STEPS
+    want = run.train_step(batch, disp_scale, TRAIN_LR, step_idx)
+    grads = [[p.grad.clone() for p in optimizer_params(opt)]
+             for opt in (run.optimizer, run.disc_optimizer)]
+    own = []
+    stepping_with(resumed.optimizer, grads[0], own)
+    stepping_with(resumed.disc_optimizer, grads[1], own)
+    for fn in counters.values():
+        fn.launches = 0
+    got = resumed.train_step(batch, disp_scale, TRAIN_LR, step_idx)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    losses_equal = {k: torch.equal(got[k], want[k]) for k in want}
+    stepped = state_differences(run, resumed)
+    rel = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+           for ours, theirs in zip(own, grads) for g, w in zip(ours, theirs)]
+    median = statistics.median(rel)
+    log(f"  the next step (batch index {step_idx}): losses "
+        f"{ {k: v.item() for k, v in got.items()} }, equal to the run's bit "
+        f"for bit {losses_equal}; after the Adam steps on the run's "
+        f"gradients, state tensors differing {len(stepped)} {stepped[:5]}; "
+        f"its own gradients vs the run's (relative, per parameter) median "
+        f"{median:.3g} (limit {WHOLE_STEP_MEDIAN_REL}), max {max(rel):.3g}; "
+        f"launches {launches}")
+    per_step = len(warp_groups(TRAIN_BATCH))
+    want_launches = {name: per_step if name.startswith("warp_rows") else 0
+                     for name in counters}
+    if not all(losses_equal.values()) or stepped:
+        fail("the resumed step does not equal the run's")
+    if not median < WHOLE_STEP_MEDIAN_REL:
+        fail("the resumed step's gradients are not the run's")
+    if launches != want_launches:
+        fail(f"the resumed step launched {launches}, not {want_launches}")
+    return {"steps": CONVERT_STEPS, "disc_final_map": list(disc_hw),
+            "seconds": seconds, "epoch": epoch, "launches": launches,
+            "losses_equal": losses_equal, "grad_median_rel": median,
+            "grad_max_rel": max(rel)}
 
 
 # ---------------------------------------------------------------------------
@@ -2784,6 +3079,38 @@ def time_forward(forward, label="bench path"):
             "fps": TIMING_BATCH / ms * 1e3}
 
 
+def time_serving_timer(forward, forward_b64):
+    """``utils/benchmark.py::measure_forward_samples`` (the bench path's
+    timer: the slope of chains of k1 = 2 and k2 = 8 passes, each pass's
+    input made from the one before, CUDA events) at ``TIMING_BATCH`` and
+    ``BENCH_BATCH``, 9 samples each: their median and spread, beside
+    ``time_forward``'s reading of the same forward at ``TIMING_BATCH`` in
+    this run (9 event timings of one pass on one input).  Printed as the
+    ``serving_timer`` line."""
+    from uncertainty_model_tpu_torch.utils import measure_forward_samples
+
+    line = {"method": "measure_forward_samples: per sample (t(k2) - t(k1))"
+                      " / (k2 - k1), chained bf16 passes, CUDA events",
+            "k1": 2, "k2": 8, "reps": 9,
+            "time_forward": {"batch": TIMING_BATCH, "ms": forward_b64["ms"],
+                             "ms_spread": forward_b64["ms_spread"]}}
+    for batch in (TIMING_BATCH, BENCH_BATCH):
+        ms = [t * 1e3 for t in measure_forward_samples(forward, batch,
+                                                       reps=9)]
+        torch.cuda.empty_cache()
+        median = statistics.median(ms)
+        line[f"b{batch}"] = {"batch": batch, "ms": median,
+                             "ms_spread": max(ms) - min(ms),
+                             "fps": batch / median * 1e3, "samples_ms": ms}
+        log(f"  serving timer (bench path) bf16 b{batch} 256x512: "
+            f"{median:.2f} ms/pass (spread {max(ms) - min(ms):.2f} ms over "
+            f"9), {batch / median * 1e3:.1f} frames/s")
+        if not all(np.isfinite(ms)) or min(ms) <= 0:
+            fail(f"serving timer samples at b{batch}: {ms}")
+    log(json.dumps({"serving_timer": line}))
+    return line
+
+
 def profile_device_time(fn, label, top=12):
     """Device time of one call of ``fn`` by PyTorch operator (self time:
     each kernel counted once, under the operator that launched it; the
@@ -3801,6 +4128,8 @@ def main() -> int:
     eval_vs_cpu = check_eval_step_against_cpu()
     train_model_run = run_train_model_with_checkpoints(train_counters,
                                                        eval_loader)
+    converted_resume = check_converted_resume(all_counters)
+    torch.cuda.empty_cache()
 
     phase("3d: the training CLI fed by the data pipeline")
     tree = tempfile.TemporaryDirectory()
@@ -3852,6 +4181,7 @@ def main() -> int:
 
     phase("4: times")
     fwd = time_forward(forward)
+    serving_timer = time_serving_timer(forward, fwd)
     s2d_fwd = {key: time_forward(f, f"({key}) {S2D_PATHS[key][0]}")
                for key, f in s2d_forwards.items()}
     s2d_fwd["a_lax"] = time_forward(
@@ -3910,7 +4240,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv_elu_rows = time_conv_elu()
     upsample_rows = time_upsample2x2()
-    log(json.dumps({"forward": fwd, "s2d_forwards": s2d_fwd,
+    log(json.dumps({"forward": fwd, "serving_timer": serving_timer,
+                    "s2d_forwards": s2d_fwd,
                     "s2d_vs_eval_model": s2d_errs,
                     "option_forwards": option_fwd,
                     "option_launches": option_launches,
@@ -3949,7 +4280,9 @@ def main() -> int:
                     "evaluation": {"metrics": eval_metrics,
                                    "launches": eval_launches},
                     "eval_vs_cpu": eval_vs_cpu,
-                    "train_model": train_model_run, "eval_step": eval_time,
+                    "train_model": train_model_run,
+                    "converted_resume": converted_resume,
+                    "eval_step": eval_time,
                     "cli": cli_run, "loader": loader_time,
                     "fed_step": fed_step,
                     "conv_elu_shapes": conv_elu_rows,
@@ -3981,6 +4314,7 @@ def main() -> int:
             "launches_ddp_adversarial": ddp_adv["launches"][name],
             "launches_cli_parallel": parallel_cli["launches"][name],
             "launches_s2d_training": s2d_train_launches[name],
+            "launches_converted_resume": converted_resume["launches"][name],
             "timed_launches": sum(r["launches_per_step"] for r in warps),
             "timed_unit": f"one training step at batch {TRAIN_BATCH}",
             "max_abs_err": warp_worst[d],

@@ -64,7 +64,7 @@ S2D_TRAINING_MODEL = {"encoder": PORT_MODEL["encoder"],
                       "decoder": TINY_MODEL["decoder"]}
 
 CONFIGS = {"fc": PORT_MODEL, "conv_se": CONV_SE_MODEL,
-           "s2d_training": S2D_TRAINING_MODEL}
+           "s2d_training": S2D_TRAINING_MODEL, "tiny": TINY_MODEL}
 
 torch.set_num_threads(2)
 

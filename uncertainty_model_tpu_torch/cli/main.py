@@ -45,9 +45,17 @@ runs in f32 only: with ``--precision bfloat16`` it is refused, as the JAX
 package's bf16 adversarial step does not run.
 
 Not ported, and refused: ``--data-backend pil`` (the port decodes with its
-own PNG decoder), and JAX (orbax) checkpoints for ``--resume-from`` /
-``--finetune-from``, which read the port's checkpoint directories
-(``train/checkpoint.py``) or reference ``.pt`` files.
+own PNG decoder).  ``--resume-from`` / ``--finetune-from`` read the port's
+checkpoint directories (``train/checkpoint.py``) or reference ``.pt``
+files; a JAX (orbax) checkpoint is refused with the command that converts
+it, run where JAX is installed::
+
+    python tools/orbax_to_torch.py <orbax_dir> <config.yml> <out_dir> \\
+        [--image-size H W]
+
+which writes a directory of the port holding the JAX run's weights, Adam
+moments and step count, epoch and discriminator, so that ``--resume-from``
+continues that run.
 """
 
 from __future__ import annotations
@@ -164,8 +172,10 @@ def _restore(args: argparse.Namespace, trainer) -> int:
                 os.path.exists(os.path.join(path, f)) for f in _ORBAX_FILES):
             raise ValueError(
                 f"{path} is a JAX (orbax) checkpoint, which the port cannot "
-                f"read; give a checkpoint directory of the port ({MODEL_FILE}"
-                f" beside train_state.pt) or a reference .pt file")
+                f"read: convert it, where JAX is installed, with `python "
+                f"tools/orbax_to_torch.py {path} {args.config} <out_dir> "
+                f"--image-size {args.image_size[0]} {args.image_size[1]}`, "
+                f"and give the directory it writes")
         raise FileNotFoundError(f"{path}: no {MODEL_FILE}, not a checkpoint "
                                 f"directory of the port")
     state_dict, train_state, *disc = load_checkpoint(

@@ -9,12 +9,22 @@ returns the reference-keyed ``state_dict`` that
 
 Layouts: conv HWIO -> OIHW; Dense (in, out) -> (out, in); BatchNorm
 scale/bias/mean/var -> weight/bias/running_mean/running_var.
+``num_batches_tracked`` is written as 0: the JAX package keeps no count,
+and BatchNorm with a momentum never reads it.
+
+``from_jax_train_state`` converts a whole JAX training state (what the JAX
+package's ``train/checkpoint.py::load_checkpoint`` restores from an orbax
+directory) into what the port's ``train/checkpoint.py::load_checkpoint``
+returns, so that ``Trainer.load_state`` resumes the run.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .models import RandomDiscriminator, RandomlyConnectedModel
+from .train.trainer import adam
 
 _ATTENTION = ("keys", "queries", "values", "reprojection")
 
@@ -106,3 +116,99 @@ def from_jax_discriminator_variables(variables, final_feature_hw
     sd["linear.weight"] = _tensor(weight.reshape(kernel.shape[0], -1))
     sd["linear.bias"] = _tensor(params["linear"]["bias"])
     return sd
+
+
+def discriminator_final_hw(disc_config, image_hw) -> tuple[int, int]:
+    """The (H, W) of the final conv's output that the discriminator's head
+    flattens, at input size ``image_hw``: each of its stages (``layers``
+    and ``final_conv``) halves the map, SAME stride 2 ((8, 16) at
+    256x512)."""
+    h, w = image_hw
+    for _ in range(len(disc_config["layers"]) + 1):
+        h, w = -(-h // 2), -(-w // 2)
+    return h, w
+
+
+def _adam_state_dict(module, to_state_dict, opt_state) -> dict:
+    """The ``state_dict`` of ``module``'s Adam (the ``Trainer``'s) holding
+    optax ``scale_by_adam``'s state ``{"count", "mu", "nu"}``.
+
+    ``to_state_dict`` maps a tree shaped as the parameters to the port's
+    keys.  The mapping only moves elements (transposes, the head's row
+    order), so Adam's elementwise moments go through it as the parameters
+    do.  The state is filled by parameter name: torch keys it by the
+    parameter's position, which a zip over tree leaves would permute.
+    ``count`` steps taken is torch's ``step``, a CPU f32 tensor; the
+    moments take the parameter's memory format, as a run's own do."""
+    optimizer = adam(module)
+    mu, nu = to_state_dict(opt_state["mu"]), to_state_dict(opt_state["nu"])
+    step = float(np.asarray(opt_state["count"]))
+    for name, p in module.named_parameters():
+        moments = {}
+        for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+            if name not in tree or tree[name].shape != p.shape:
+                raise ValueError(
+                    f"{key} of {name}: "
+                    + (f"shape {tuple(tree[name].shape)}, the parameter's "
+                       f"{tuple(p.shape)}" if name in tree else "missing"))
+            moments[key] = torch.empty_like(p).copy_(tree[name])
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32), **moments}
+    return optimizer.state_dict()
+
+
+def _loaded(module, state_dict):
+    module.load_state_dict(state_dict, strict=True)
+    return module.to(memory_format=torch.channels_last)
+
+
+def from_jax_train_state(restored, model_config, disc_config=None,
+                         image_hw=(256, 512)) -> tuple:
+    """A JAX training state (the dict of numpy arrays that the JAX
+    package's ``load_checkpoint`` restores: ``params``, ``batch_stats``,
+    ``opt_state`` and, but in a ``final`` checkpoint, ``epoch``; with a
+    discriminator ``disc_params``, ``disc_batch_stats``,
+    ``disc_opt_state``) -> what the port's ``load_checkpoint`` returns for
+    its own directory: ``(state_dict, train_state)``, and with
+    ``disc_config`` ``(state_dict, train_state, disc_state_dict)``.
+
+    ``train_state`` is ``{"optimizer": <the model's Adam state_dict>,
+    "epoch": <int, or None for final>}`` (and ``"disc_optimizer"``), on a
+    model built from ``model_config`` (a config's ``model`` section) with
+    the ``Trainer``'s optimizer, so its ``param_groups`` are a fresh
+    trainer's.  ``image_hw``: the training image size, which fixes the
+    discriminator's final map (its head's rows go from NHWC to NCHW
+    order); a size whose map does not match the head's kernel raises.
+    The lagged clone is in neither package's checkpoints: the trainer
+    starts it as a copy of the discriminator."""
+    stats = restored["batch_stats"]
+    state_dict = from_jax_variables(restored)
+    model = _loaded(RandomlyConnectedModel(**model_config), state_dict)
+    epoch = restored.get("epoch")
+    train_state = {
+        "optimizer": _adam_state_dict(
+            model, lambda tree: from_jax_variables(
+                {"params": tree, "batch_stats": stats}),
+            restored["opt_state"]),
+        "epoch": None if epoch is None else int(epoch)}
+    if disc_config is None:
+        return state_dict, train_state
+    if "disc_params" not in restored:
+        raise ValueError("the JAX state holds no discriminator")
+    hw = discriminator_final_hw(disc_config, image_hw)
+    rows = np.shape(restored["disc_params"]["linear"]["kernel"])[0]
+    channels = disc_config["final_conv"]["out_channels"]
+    if hw[0] * hw[1] * channels != rows:
+        raise ValueError(
+            f"image size {tuple(image_hw)} gives the discriminator a "
+            f"{hw[0]}x{hw[1]}x{channels} final map, but its head's kernel "
+            f"has {rows} rows: give the size it was trained at")
+    disc_stats = restored["disc_batch_stats"]
+    disc_state_dict = from_jax_discriminator_variables(
+        {"params": restored["disc_params"], "batch_stats": disc_stats}, hw)
+    disc = _loaded(RandomDiscriminator(**disc_config), disc_state_dict)
+    train_state["disc_optimizer"] = _adam_state_dict(
+        disc, lambda tree: from_jax_discriminator_variables(
+            {"params": tree, "batch_stats": disc_stats}, hw),
+        restored["disc_opt_state"])
+    return state_dict, train_state, disc_state_dict

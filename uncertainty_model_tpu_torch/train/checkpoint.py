@@ -52,17 +52,29 @@ def save_checkpoint(directory: str, model, optimizer,
     name = "final" if is_final else f"epoch_{epoch_number:03}"
     path = os.path.abspath(os.path.join(directory, name))
     if parallel.rank() == 0:
-        os.makedirs(path, exist_ok=True)
-        print(f"Saving model to:\n\t{path}")
-        weights = _weights(model)
         train_state = {"optimizer": optimizer.state_dict(),
                        "epoch": epoch_number}
         if disc is not None:
-            weights = {"model": weights, "disc": _weights(disc)}
             train_state["disc_optimizer"] = disc_optimizer.state_dict()
-        torch.save(weights, os.path.join(path, MODEL_FILE))
-        torch.save(train_state, os.path.join(path, TRAIN_STATE_FILE))
+        write_checkpoint(path, _weights(model), train_state,
+                         None if disc is None else _weights(disc))
     parallel.barrier()
+    return path
+
+
+def write_checkpoint(path: str, state_dict: dict, train_state: dict,
+                     disc_state_dict: Optional[dict] = None) -> str:
+    """Write the checkpoint directory ``path`` from what
+    ``load_checkpoint(path)`` returns (its inverse; ``save_checkpoint``
+    writes through it, and so does the converter of JAX checkpoints,
+    ``tools/orbax_to_torch.py``); returns its absolute path."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    print(f"Saving model to:\n\t{path}")
+    weights = (state_dict if disc_state_dict is None
+               else {"model": state_dict, "disc": disc_state_dict})
+    torch.save(weights, os.path.join(path, MODEL_FILE))
+    torch.save(train_state, os.path.join(path, TRAIN_STATE_FILE))
     return path
 
 

@@ -73,6 +73,13 @@ BF16_ADVERSARIAL = (
     "so it has no bf16 reference")
 
 
+def adam(module) -> torch.optim.Adam:
+    """The optimizer of ``module``'s parameters that ``Trainer`` steps (the
+    learning rate is set before each step)."""
+    return torch.optim.Adam(module.parameters(), lr=0.0,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
 class Trainer:
     """Trains ``model`` (the port's ``RandomlyConnectedModel``), moved to
     ``device`` (CUDA unless asked otherwise), under ``loss_config`` (the
@@ -93,12 +100,12 @@ class Trainer:
         self.loss = TukraUncertaintyLoss(**(loss_config or {}))
         self.scales = scales
         self.perceptual_update_freq = perceptual_update_freq
-        self.optimizer = self._adam(self.model)
+        self.optimizer = adam(self.model)
         self.disc = self.disc_lag = self.disc_optimizer = None
         if disc is not None:
             self.disc = self._place(disc)
             self.disc_lag = self._lag()
-            self.disc_optimizer = self._adam(self.disc)
+            self.disc_optimizer = adam(self.disc)
         # DistributedDataParallel's wrappers, which the step calls where
         # distributed (else None)
         self.ddp_model = self._wrap(self.model)
@@ -127,11 +134,6 @@ class Trainer:
                 module, device_ids=([self.device]
                                     if self.device.type == "cuda" else None),
                 broadcast_buffers=False, process_group=self.group)
-
-    @staticmethod
-    def _adam(module) -> torch.optim.Adam:
-        return torch.optim.Adam(module.parameters(), lr=0.0,
-                                betas=(0.9, 0.999), eps=1e-8)
 
     def _lag(self):
         """A deep copy of the live discriminator (without its gradients)
@@ -167,11 +169,11 @@ class Trainer:
                 "this trainer has a discriminator: give its weights "
                 "(disc_state_dict)")
         self.model.load_state_dict(state_dict, strict=True)
-        self.optimizer = self._adam(self.model)
+        self.optimizer = adam(self.model)
         if self.disc is not None:
             self.disc.load_state_dict(disc_state_dict, strict=True)
             self.disc_lag = self._lag()
-            self.disc_optimizer = self._adam(self.disc)
+            self.disc_optimizer = adam(self.disc)
         if train_state is None:
             return 0
         self.optimizer.load_state_dict(train_state["optimizer"])
