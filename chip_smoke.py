@@ -124,10 +124,39 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    weights on the card: the losses, the BatchNorm running statistics, the
    model backward of an equal cotangent per parameter, the whole step's
    median;
+3i. run the port's entry points (``entry.py``, ``bench.py``): ``entry()``'s
+   forward on phase 3's weights against the f32 eval model (1e-3); the
+   bench's forward (``bench.py``'s options, "nomax") at batch 8, its
+   launches the ``smax="nomax"`` path's (3 ``assemble_z``), bf16 within
+   0.05 of the f32 eval model; ``dryrun_multichip(N)`` (N = the cards
+   visible, a process each over NCCL; 1 on a one-card machine): its three
+   legs' losses finite and equal on every rank, 5 + 5 ``warp_rows``
+   launches in each training step and 5 + 0 in the forward leg; the cards'
+   topology (``nvidia-smi topo -m``).  With N >= 2, across the cards: a
+   DDP f32 step at batch 8 a rank against one process's step at 8 N on
+   the same global batch and weights with phase 3g's limits (losses, dL/dD
+   at equal disparities, the model backward per parameter, every synced
+   BatchNorm layer against ``F.batch_norm`` of the gathered global input,
+   the whole step's median), the adversarial DDP step's losses against
+   one process's, then every rank's gradients and its state after 6 f32
+   and 6 adversarial steps (parameters, BatchNorm statistics, Adam
+   moments, the discriminator and its clone) equal to rank 0's bit for
+   bit by digest, 5 + 5 ``warp_rows`` launches each step on every rank
+   (the 5x5 stride-1 convs' weights, whose cuDNN gradient is lossy, are
+   compared by their f64 judges); then ``cli.parallel_main
+   --num-processes N`` (a card a
+   process) for one f32 epoch on phase 3d's tree: every rank's launches
+   per step and evaluation batch, rank 0's outputs, the losses within
+   1e-4 of phase 3d's serial run (divided by N: the parallel CLI sums the
+   global batches' means over a rank's own images);
 4. time the bench path also with the package's forward timer
    (``utils/benchmark.py``: slopes of chained passes, 9 samples) at batch
    64 and 128 (``bench.py``'s), printed as the ``serving_timer`` line beside
-   the 9 one-pass event timings at batch 64;
+   the 9 one-pass event timings at batch 64, then the bench itself
+   (``bench.bench``: "nomax", batch 128) and its JSON line; with N >= 2
+   the DDP step at batch 8 a rank at a world of N against a world of 1,
+   each in fresh processes (ms/step, images/s, scaling efficiency, rank
+   0's idle share and NCCL's share of its device kernel time);
    time the serving forwards at batch 64 (the bench path, (a), (b), (c),
    (a) with ``s2d_conv_backend="lax"``, ``fused_stages`` (0, ..., 4) and
    (), ``smax="nomax"``; the glue kernels also at dec0 and dec1), the
@@ -165,10 +194,12 @@ sites, at batch 64, in bf16 and f32.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -232,6 +263,7 @@ ADV_PERCEPTUAL_START = 3
 ADV_UPDATE_FREQ = 2
 FLAGSHIP_DISC_PARAMS = 7_625_230   # jax.eval_shape of the JAX module's init
 FLAGSHIP_BN_LAYERS, FLAGSHIP_DISC_BN_LAYERS = 40, 25
+FLAGSHIP_PARAMS = 22_493_949
 # card vs CPU (readings on an NVIDIA H100 80GB HBM3), link by link on the
 # same (CPU-computed) pyramids: the discriminator's loss within
 # DISC_LOSS_RTOL (read: 1.4e-6; the whole step's loss moves ~60x that with
@@ -267,6 +299,7 @@ PORT_KERNELS = ("decoder_rows", "gate_z_flat", "gated_conv",
                 "warp_rows", "upsample2x2")   # device kernel names, for the profiler
 CLI_CONFIG = "configs/uncertainty.yml"
 CLI_TRAIN_PAIRS = 16    # the CLI phase's da Vinci tree: 2 steps an epoch
+PARALLEL_CLI_TIMEOUT_S = 300  # the parallel CLI's processes, all together
 CLI_TEST_PAIRS = 12     # evaluation batches of 8 and 4 (drop_last=False)
 CLI_SOURCE_SHAPE = (1024, 1280)   # PNG size; the loader resizes to 256x512
 CLI_SHIFT = 24          # the right view's shift against the left, pixels
@@ -386,13 +419,6 @@ def phase(name):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -2957,6 +2983,636 @@ def check_s2d_step_against_direct(disp_scale):
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the port's entry points (entry, the bench, dryrun_multichip) and,
+# with 2 or more cards, data parallelism across them
+# ---------------------------------------------------------------------------
+
+
+def check_entry(model, x, ref):
+    """``entry()``'s forward on the card: its flagship (22,493,949
+    parameters, eval mode, f32, the zero example image) given phase 3's
+    weights, on ``x`` against the f32 eval model's ``ref`` within
+    ``F32_VS_F32_EVAL``; on its own example image, finite."""
+    from uncertainty_model_tpu_torch.entry import entry
+
+    forward, (entry_model, zeros) = entry()
+    n_params = sum(p.numel() for p in entry_model.parameters())
+    if (n_params != FLAGSHIP_PARAMS or entry_model.training
+            or tuple(zeros.shape) != (1, 256, 512, 3)
+            or zeros.dtype != torch.float32 or zeros.device.type != "cuda"):
+        fail(f"entry() gave a model of {n_params} parameters (training "
+             f"{entry_model.training}) and an example {tuple(zeros.shape)} "
+             f"{zeros.dtype} on {zeros.device}")
+    example = forward(entry_model, zeros)
+    entry_model.load_state_dict(model.state_dict(), strict=True)
+    out = forward(entry_model, x)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    log(f"  entry(): forward {tuple(x.shape)} -> {tuple(out.shape)} "
+        f"{out.dtype} vs the f32 eval model: max abs {err:.3g} (limit "
+        f"{F32_VS_F32_EVAL}); its example {tuple(zeros.shape)} -> "
+        f"{tuple(example.shape)}")
+    if (tuple(out.shape) != tuple(ref.shape) or not err <= F32_VS_F32_EVAL
+            or tuple(example.shape) != (1, 256, 512, 4)
+            or not torch.isfinite(example).all()):
+        fail("entry()'s forward differs from the f32 eval model")
+    del entry_model
+    return {"max_abs_vs_eval_model": err, "parameters": n_params}
+
+
+def check_bench_forward(model, counters, x, ref, nomax_launches):
+    """The bench's forward (``bench.bench_forward``: ``bench.py``'s options,
+    "nomax") at batch 8 on phase 3's weights: its launches equal the
+    ``smax="nomax"`` option path's (3 ``assemble_z``), the output within
+    ``BF16_VS_F32_EVAL`` of the f32 eval model."""
+    from uncertainty_model_tpu_torch.bench import bench_forward
+
+    forward = bench_forward(model)
+    for fn in counters.values():
+        fn.launches = 0
+    out = forward(x)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    err = (out.float() - ref).abs().max().item()
+    log(f"  the bench's forward bf16 {tuple(x.shape)} -> {tuple(out.shape)}: "
+        f"launches {launches} (the nomax path's {nomax_launches}); vs the "
+        f"f32 eval model max abs {err:.4g} (limit {BF16_VS_F32_EVAL})")
+    if launches != nomax_launches or launches["assemble_z"] != 3:
+        fail(f"the bench's forward launched {launches}")
+    if not torch.isfinite(out).all() or not err <= BF16_VS_F32_EVAL:
+        fail("the bench's forward is not close to the f32 eval model")
+    return {"launches": launches, "max_abs_vs_eval_model": err}
+
+
+def run_dryrun(n):
+    """``entry.dryrun_multichip(n)`` (a process a card, NCCL): on every rank
+    the three legs' losses finite and equal to rank 0's (each the global
+    batch's mean), 5 + 5 ``warp_rows`` launches in each training step and
+    5 + 0 in the forward leg."""
+    from uncertainty_model_tpu_torch.entry import dryrun_multichip
+
+    per_step = len(warp_groups(TRAIN_BATCH))
+    want = {"tiny": (per_step, per_step), "flagship": (per_step, 0),
+            "flagship_train": (per_step, per_step)}
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(n)
+    seconds = time.perf_counter() - t0
+    for rank, got in enumerate(ranks):
+        if got["device"] != f"cuda:{rank}":
+            fail(f"dryrun rank {rank} ran on {got['device']}")
+        for leg, (fwd, bwd) in want.items():
+            launches = got[leg]["launches"]
+            if launches != {"warp_rows_fwd": fwd, "warp_rows_bwd": bwd}:
+                fail(f"dryrun rank {rank} leg {leg} launched {launches}")
+            if got[leg] != ranks[0][leg]:
+                fail(f"dryrun rank {rank} leg {leg}: {got[leg]}, rank 0 "
+                     f"{ranks[0][leg]}")
+    log(f"  dryrun_multichip({n}): {seconds:.1f} s; rank 0 {ranks[0]}")
+    return {"seconds": seconds, "ranks": ranks}
+
+
+def topology():
+    """How the cards are linked, recorded (not a check): ``nvidia-smi topo
+    -m`` and ``nvidia-smi nvlink --status`` (each one's text, or its exit
+    code where the machine refuses it), and which pairs of cards can
+    reach each other's memory (``torch.cuda.can_device_access_peer``)."""
+    out = {}
+    for cmd in (["nvidia-smi", "topo", "-m"],
+                ["nvidia-smi", "nvlink", "--status"]):
+        run = subprocess.run(cmd, capture_output=True, text=True)
+        text = (run.stdout if run.returncode == 0 else
+                f"exited {run.returncode} {run.stderr}").rstrip()
+        out[" ".join(cmd[1:])] = text
+        for line in text.splitlines()[:24]:
+            log(f"  | {' '.join(cmd[1:])}: {line}")
+    n = torch.cuda.device_count()
+    out["peer_access"] = [[i == j or torch.cuda.can_device_access_peer(i, j)
+                           for j in range(n)] for i in range(n)]
+    log(f"  peer access between the {n} cards: {out['peer_access']}")
+    return out
+
+
+def global_stereo(batch, seed):
+    """A numpy stereo batch of ``batch`` images at the flagship's input
+    size."""
+    from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
+
+    rng = np.random.default_rng(seed)
+    return {side: rng.uniform(size=(batch, *FLAGSHIP_INPUT, 3)).astype(
+        np.float32) for side in ("left", "right")}
+
+
+def rank_rows(batch, rank, world, device):
+    """Rank ``rank``'s rows of a global numpy batch, on ``device``."""
+    b = len(batch["left"]) // world
+    return {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(device)
+            for k, v in batch.items()}
+
+
+def state_tensors(**objects):
+    """{name: tensor} of the given modules' ``state_dict`` (parameters and
+    BatchNorm statistics) and optimizers' state (Adam's moments and
+    steps), each name prefixed by its keyword."""
+    out = {}
+    for prefix, obj in objects.items():
+        state = obj.state_dict()
+        if isinstance(obj, torch.optim.Optimizer):
+            state = {f"{i}.{k}": v for i, s in state["state"].items()
+                     for k, v in s.items()}
+        out.update({f"{prefix}.{k}": v for k, v in state.items()})
+    return out
+
+
+def digests(tensors):
+    """{name: blake2b of the tensor's bytes}: equal digests, equal tensors
+    bit for bit."""
+    import hashlib
+
+    return {k: hashlib.blake2b(t.detach().cpu().contiguous().numpy()
+                               .tobytes()).hexdigest()
+            for k, t in tensors.items()}
+
+
+def check_synced_bn_global(trainer, batch, disp_scale, rank, world):
+    """Each synced BatchNorm layer's train-mode output on this rank's rows
+    against ``F.batch_norm`` of the layer's input gathered from every rank
+    (the global batch), this rank's rows, within ``F32_TOL``; returns
+    (layers, worst max |diff|, layers outside the limit)."""
+    import torch.nn.functional as F
+
+    from uncertainty_model_tpu_torch import parallel
+
+    worst, bad = [0.0], []
+
+    def hook(module, args, out):
+        x = parallel.all_gather_rows(args[0].contiguous())
+        b = len(args[0])
+        want = F.batch_norm(x, None, None, module.weight, module.bias, True,
+                            0.0, module.eps)[rank * b:(rank + 1) * b]
+        worst[0] = max(worst[0], (out - want).abs().max().item())
+        if not within(out, want, **F32_TOL):
+            bad.append(module)
+
+    layers = synced_bn_layers(trainer.model)
+    handles = [m.register_forward_hook(hook) for m in layers]
+    try:
+        with torch.no_grad():
+            step_disparities(trainer, batch, disp_scale)
+    finally:
+        for h in handles:
+            h.remove()
+    return len(layers), worst[0], len(bad)
+
+
+def ddp_steps(trainer, batch, disp_scale, steps, step_idx0=0):
+    """``steps`` steps of ``train_one_epoch`` on ``batch`` repeated (the
+    batch index from ``step_idx0`` on, as the epoch counts it), the
+    ``warp_rows`` counters zeroed first: (per-step launches, the running
+    averages after each step)."""
+    from uncertainty_model_tpu_torch.ops.warp_rows import (
+        warp_rows_bwd, warp_rows_fwd)
+
+    counters = {"warp_rows_fwd": warp_rows_fwd,
+                "warp_rows_bwd": warp_rows_bwd}
+    seen = []
+    for fn in counters.values():
+        fn.launches = 0
+    trainer.train_one_epoch([batch] * steps, disp_scale, TRAIN_LR,
+                            metrics_every=1, progress=lambda a: seen.append(
+                                ({k: fn.launches
+                                  for k, fn in counters.items()}, a)))
+    launches, previous = [], dict.fromkeys(counters, 0)
+    for counts, _ in seen:
+        launches.append(tuple(counts[k] - previous[k] for k in counters))
+        previous = counts
+    return launches, [a for _, a in seen]
+
+
+def lossy_model_grads(trainer, batch, disp_scale, cot):
+    """``model_grads``, and for each of the encoder's stage-1 convs whose
+    cuDNN weight gradient is the lossy one (``cudnn_lossy``) its weight's
+    name, the f64 judge of that gradient (on the CPU from the conv's own
+    ``x`` and ``dy`` in this backward) and the relative distance of
+    cuDNN's from it alone: {name: (judge, relative distance)}."""
+    convs = {i: c for i, c in stage_convs(trainer.model.encoder.layers,
+                                          1).items() if cudnn_lossy(c)}
+    grads = {}
+    io = capture_conv_io(convs, lambda: grads.update(
+        model_grads(trainer, batch, disp_scale, cot)))
+    links = {}
+    for i, conv in convs.items():
+        judge = conv_wgrad(conv, io[i]["x"], io[i]["dy"], "cpu",
+                           torch.float64)
+        links[f"encoder.layers.1.layers.0.node_blocks.{i}.convolution."
+              "layers.0.weight"] = (judge, rel(conv_wgrad(
+                  conv, io[i]["x"], io[i]["dy"], trainer.device), judge))
+    return grads, links
+
+
+@contextlib.contextmanager
+def lead_prints(rank):
+    """Rank 0 prints; the other ranks' prints go nowhere."""
+    if rank == 0:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
+
+
+def ddp_rank(rank, world, device, disp_scale, links_path):
+    """One rank of phase 3i's cross-card checks (in an NCCL group of
+    ``world`` processes, a card each):
+
+    1. one f32 DDP step at ``TRAIN_BATCH`` a rank (its rows of the global
+       batch, seed ``SEED + 62``) at lr 0: its losses (the global batch's
+       means) and gradients (DDP's average), for the parent to hold against
+       the one-process step; the gradients' digests (equal on every rank);
+    2. links on the parent's disparities and dL/dD (``links_path``, the
+       one-process step's, global batch): this rank's loss gradient in
+       its rows' disparities (the global loss's times ``world``: every
+       loss is a batch mean); the model backward (DDP's wrapper, its
+       all-reduce and the synced BatchNorm included) of ``world`` times
+       the global cotangent's rows, which DDP's average brings back to
+       the one-process backward of the global cotangent; each synced
+       BatchNorm layer against ``F.batch_norm`` of the gathered input;
+    3. ``TRAIN_STEPS`` DDP steps from the same weights and batch (K2 5 + 5
+       a step), then the digest of every tensor of the model and Adam;
+    4. the adversarial step (``adversarial_trainer(SEED + 50)``, the
+       perceptual term live) at lr 0, for the parent to hold against the
+       one-process step on the global batch; then ``TRAIN_STEPS`` steps
+       (the clone refreshed every ``ADV_UPDATE_FREQ``), K2 5 + 5 a step,
+       the digests of the model, the discriminator, the clone and both
+       optimizers.
+
+    Every rank runs the same collectives in the same order; rank 0 alone
+    returns the gradients."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with lead_prints(rank):
+        return ddp_rank_checks(rank, world, device, disp_scale, links_path)
+
+
+def ddp_rank_checks(rank, world, device, disp_scale, links_path):
+    """``ddp_rank``'s work (this rank's printing already chosen)."""
+    lead = rank == 0
+    out = {"device": str(device)}
+    batch = rank_rows(global_stereo(TRAIN_BATCH * world, SEED + 62),
+                      rank, world, device)
+
+    trainer = flagship_trainer(SEED + 60, device=device, distributed=True)
+    losses = trainer.train_step(batch, disp_scale, 0.0)
+    grads = {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}
+    out["losses"] = {k: v.item() for k, v in losses.items()}
+    out["grad_digests"] = digests(grads)
+    out["grads"] = grads if lead else None
+
+    links = torch.load(links_path, map_location="cpu", weights_only=True)
+    b = TRAIN_BATCH
+    rows = slice(rank * b, (rank + 1) * b)
+    disparities = [d[rows] for d in links["disparities"]]
+    cot = [c[rows] * world for c in links["cot"]]
+    out["loss_grad_rel"] = [rel(a, c) for a, c in zip(
+        loss_grad(trainer, batch, disparities), cot)]
+    model_g, out["lossy"] = lossy_model_grads(trainer, batch, disp_scale,
+                                              cot)
+    out["model_grads"] = model_g if lead else None
+    out["bn_layers"], out["bn_max_abs"], out["bn_bad"] = \
+        check_synced_bn_global(trainer, batch, disp_scale, rank, world)
+
+    out["launches"], averages = ddp_steps(trainer, batch, disp_scale,
+                                          TRAIN_STEPS)
+    out["finite"] = all(np.isfinite(a[k]) for a in averages
+                        for k in ("disp", "unc"))
+    out["digests"] = digests(state_tensors(model=trainer.model,
+                                           optimizer=trainer.optimizer))
+    del trainer
+
+    adv = adversarial_trainer(SEED + 50, device=device, distributed=True)
+    adv_losses = adv.train_step(batch, disp_scale, 0.0, ADV_PERCEPTUAL_START)
+    out["adversarial_losses"] = {k: v.item() for k, v in adv_losses.items()}
+    out["adversarial_launches"], averages = ddp_steps(adv, batch, disp_scale,
+                                                      TRAIN_STEPS)
+    out["adversarial_finite"] = all(np.isfinite(a[k]) for a in averages
+                                    for k in ("disp", "unc", "disc"))
+    out["adversarial_digests"] = digests(state_tensors(
+        model=adv.model, disc=adv.disc, clone=adv.disc_lag,
+        optimizer=adv.optimizer, disc_optimizer=adv.disc_optimizer))
+    return out
+
+
+def nccl_share(fn):
+    """NCCL's share of the device's kernel time in one profiled call of
+    ``fn`` (the kernels of its collectives, their waits for the other
+    ranks included)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(self_ms(e) for e in kernels)
+    nccl = {e.key[:80]: (self_ms(e), e.count) for e in kernels
+            if "nccl" in e.key.lower()}
+    nccl_ms = sum(ms for ms, _ in nccl.values())
+    return {"device_ms": total, "nccl_ms": nccl_ms,
+            "nccl_share": nccl_ms / total if total else None,
+            "nccl_kernels": nccl}
+
+
+def check_ddp_across_cards(n, disp_scale):
+    """Phase 3i's cross-card checks (``ddp_rank`` in ``n`` processes, a card
+    each), against one process on the global batch of ``n`` x
+    ``TRAIN_BATCH`` from the same weights, with phase 3g's limits: each
+    rank's losses within ``LOSS_RTOL``; dL/dD at equal disparities within
+    ``LOSS_GRAD_REL``; the model backward of an equal cotangent per
+    parameter within max(GRAD_REL |g|, GRAD_FLOOR); every synced BatchNorm
+    layer within ``F32_TOL`` of ``F.batch_norm`` on the global batch; the
+    whole step's gradients by their median within
+    ``WHOLE_STEP_MEDIAN_REL``; the adversarial step's losses within
+    ``LOSS_RTOL``.  Then every rank's gradients, and its state after
+    ``TRAIN_STEPS`` f32 and adversarial steps, equal rank 0's bit for bit
+    (DDP gives every rank the same averaged gradients, so any difference
+    is a fault), with 5 + 5 ``warp_rows`` launches each step on every
+    rank."""
+    from uncertainty_model_tpu_torch import parallel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = {k: torch.from_numpy(v).cuda() for k, v in global_stereo(
+        TRAIN_BATCH * n, SEED + 62).items()}
+    plain = flagship_trainer(SEED + 60, device="cuda")
+    want = {k: v.item() for k, v in
+            plain.train_step(batch, disp_scale, 0.0).items()}
+    want_grads = {k: p.grad.cpu() for k, p in plain.model.named_parameters()}
+    with torch.no_grad():
+        disparities = step_disparities(plain, batch, disp_scale)
+    cot = loss_grad(plain, batch, disparities)
+    want_model, want_lossy = lossy_model_grads(plain, batch, disp_scale, cot)
+    del plain
+    adv = adversarial_trainer(SEED + 50, device="cuda")
+    want_adv = {k: v.item() for k, v in adv.train_step(
+        batch, disp_scale, 0.0, ADV_PERCEPTUAL_START).items()}
+    del adv, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        links = os.path.join(tmp, "links.pt")
+        torch.save({"disparities": [d.cpu() for d in disparities],
+                    "cot": cot}, links)
+        del disparities
+        # NCCL's own account of the links it found (its graph search),
+        # written by each rank's NCCL to a file
+        nccl_env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "GRAPH",
+                    "NCCL_DEBUG_FILE": os.path.join(tmp, "nccl.%p.log")}
+        saved = {k: os.environ.get(k) for k in nccl_env}
+        os.environ.update(nccl_env)
+        try:
+            t0 = time.perf_counter()
+            ranks = parallel.spawn(ddp_rank, n, disp_scale=disp_scale,
+                                   links_path=links)
+            seconds = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        nccl_graph = sorted({line.split("NCCL INFO", 1)[-1].strip()
+                             for name in os.listdir(tmp)
+                             if name.startswith("nccl.")
+                             for line in open(os.path.join(tmp, name))
+                             if "Pattern" in line or " via " in line})
+
+    for line in nccl_graph[:16]:
+        log(f"  | NCCL: {line}")
+    per_step = len(warp_groups(TRAIN_BATCH))
+    problems, result = [], {"world": n, "seconds": seconds, "ranks": [],
+                            "nccl_graph": nccl_graph[:64]}
+    for rank, got in enumerate(ranks):
+        row = {
+            "device": got["device"],
+            "loss_rel": {k: abs(got["losses"][k] - w) / abs(w)
+                         for k, w in want.items()},
+            "loss_grad_rel": got["loss_grad_rel"],
+            "bn_layers": got["bn_layers"], "bn_max_abs": got["bn_max_abs"],
+            "adversarial_loss_rel": {
+                k: abs(got["adversarial_losses"][k] - w) / abs(w)
+                for k, w in want_adv.items()},
+            "launches": got["launches"],
+            "adversarial_launches": got["adversarial_launches"]}
+        result["ranks"].append(row)
+        log(f"  rank {rank} ({got['device']}): losses {got['losses']} (rel "
+            f"{row['loss_rel']}, limit {LOSS_RTOL}); dL/dD rel "
+            + ", ".join(f"{v:.3g}" for v in row["loss_grad_rel"])
+            + f" (limit {LOSS_GRAD_REL}); {got['bn_layers']} synced "
+            f"BatchNorm layers, worst max abs {got['bn_max_abs']:.3g} vs "
+            f"F.batch_norm of the global batch; adversarial rel "
+            f"{row['adversarial_loss_rel']}; launches a step "
+            f"{got['launches']} and {got['adversarial_launches']}")
+        if max(row["loss_rel"].values()) > LOSS_RTOL:
+            problems.append(f"rank {rank}'s losses differ from one process's")
+        if max(row["loss_grad_rel"]) > LOSS_GRAD_REL:
+            problems.append(f"rank {rank}'s loss gradient differs")
+        if got["bn_layers"] != FLAGSHIP_BN_LAYERS or got["bn_bad"]:
+            problems.append(f"rank {rank}: {got['bn_bad']} of "
+                            f"{got['bn_layers']} synced BatchNorm layers "
+                            "differ from F.batch_norm of the global batch")
+        if max(row["adversarial_loss_rel"].values()) > LOSS_RTOL:
+            problems.append(f"rank {rank}'s adversarial losses differ")
+        for key in ("launches", "adversarial_launches"):
+            if got[key] != [(per_step, per_step)] * TRAIN_STEPS:
+                problems.append(f"rank {rank} launched {got[key]} ({key})")
+        if not (got["finite"] and got["adversarial_finite"]):
+            problems.append(f"rank {rank}: non-finite losses")
+        for key in ("grad_digests", "digests", "adversarial_digests"):
+            differ = [k for k, v in got[key].items()
+                      if v != ranks[0][key][k]]
+            if got[key].keys() != ranks[0][key].keys() or differ:
+                problems.append(f"rank {rank}'s {key} differ from rank 0's "
+                                f"in {len(differ)} tensors: {differ[:4]}")
+    result["equal_tensors"] = {key: len(ranks[0][key]) for key in (
+        "grad_digests", "digests", "adversarial_digests")}
+    log(f"  every rank equal to rank 0 bit for bit: "
+        f"{result['equal_tensors']} tensors (gradients; model and Adam "
+        f"after {TRAIN_STEPS} steps; model, discriminator, clone and both "
+        f"optimizers after {TRAIN_STEPS} adversarial steps)")
+    share, median = grad_check(ranks[0]["grads"], want_grads)
+    # the model backward per parameter; the weights whose cuDNN gradient
+    # is lossy (~2e-3 from f64 on each side, at other batch sizes: two
+    # errors) are compared on their f64 judges instead, at the same limit,
+    # and each side's cuDNN gradient is held against its own judge within
+    # GRAD_REL (phase 3b's link), DDP's being the mean of the ranks'
+    worst, got_model = [], dict(ranks[0]["model_grads"])
+    lossy = {}
+    for name, (judge, cudnn_rel) in want_lossy.items():
+        ddp_judge = sum(r["lossy"][name][0] for r in ranks) / n
+        got_model[name], want_model[name] = ddp_judge, judge
+        lossy[name] = {
+            "one_process_cudnn_vs_f64": cudnn_rel,
+            "ranks_cudnn_vs_f64": [r["lossy"][name][1] for r in ranks],
+            "ddp_gradient_vs_its_f64": rel(ranks[0]["model_grads"][name],
+                                           ddp_judge)}
+        # the ranks' side is held to phase 3b's link limit; the one
+        # process's at 4 times the batch, the reference here, is recorded
+        # (cuDNN's error grows with the batch: 6.0e-3 at 32, NVIDIA H100
+        # 80GB HBM3)
+        if max(lossy[name]["ddp_gradient_vs_its_f64"],
+               *lossy[name]["ranks_cudnn_vs_f64"]) > GRAD_REL:
+            problems.append(f"{name}: the ranks' cuDNN gradient is further "
+                            f"than {GRAD_REL} from its f64 judge")
+    m_share, m_median = grad_check(got_model, want_model, worst)
+    result.update(whole_step_median_rel=median,
+                  model_backward_worst_share=m_share,
+                  model_backward_median_rel=m_median, lossy_convs=lossy)
+    log(f"  whole step, world {n} vs one process: gradients' median relative "
+        f"{median:.3g} (limit {WHOLE_STEP_MEDIAN_REL}); model backward of "
+        f"the same dL/dD: worst at {m_share:.3g} of max({GRAD_REL} |g|, "
+        f"{GRAD_FLOOR}), median {m_median:.3g}; the worst: " + "; ".join(
+            f"{name} at {sh:.3g}" for sh, _, name in worst))
+    log(f"  the {len(lossy)} lossy cuDNN weights (compared above by their "
+        f"f64 judges): cuDNN vs f64, one process (recorded) / ranks / "
+        f"DDP's mean (limit {GRAD_REL}): " + "; ".join(
+            f"node {k.split('.')[6]} {v['one_process_cudnn_vs_f64']:.3g} / "
+            + ", ".join(f"{x:.3g}" for x in v["ranks_cudnn_vs_f64"])
+            + f" / {v['ddp_gradient_vs_its_f64']:.3g}"
+            for k, v in lossy.items()))
+    if median > WHOLE_STEP_MEDIAN_REL:
+        problems.append("the DDP step's gradients differ from one process's")
+    if not m_share < 1:
+        problems.append("the DDP model backward differs from one process's")
+    if problems:
+        fail("; ".join(problems))
+    return result
+
+
+def parallel_cli_rank(rank, world, address, home, out, result_path):
+    """One process of ``cli.parallel_main --num-processes world`` on phase
+    3d's tree for one f32 epoch (``run_cli``: this rank's launches per
+    step and per evaluation batch); rank 0 also checks the outputs.  The
+    result is pickled to ``result_path``."""
+    from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
+    from uncertainty_model_tpu_torch.ops.decoder_fused import (
+        assemble, assemble_z, gate_z, se_squeeze)
+    from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
+    from uncertainty_model_tpu_torch.ops.warp_rows import (
+        warp_rows_bwd, warp_rows_fwd)
+
+    counters = {"assemble_z": assemble_z, "gate_z": gate_z,
+                "se_squeeze": se_squeeze, "assemble": assemble,
+                "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
+                "upsample2x2": upsample2x2, "warp_rows_fwd": warp_rows_fwd,
+                "warp_rows_bwd": warp_rows_bwd}
+    torch.backends.cudnn.allow_tf32 = True   # PyTorch's default
+    args, _, run, launches, steps, evals = run_cli(counters, cli_argv(
+        home, out, "--epochs", "1", "--num-processes", str(world),
+        "--process-id", str(rank), "--coordinator-address", address),
+        parallel=True)
+    result = {"launches": launches, "steps": steps, "evals": evals,
+              "results": check_cli_outputs(args, run, 1) if rank == 0
+              else None}
+    with open(result_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_parallel_cli_ranks(n, home, out):
+    """``parallel_cli_rank`` in ``n`` fresh processes (the CLI joins the
+    process group itself); each rank's result in rank order.  A rank that
+    fails (its traceback goes to stderr) stops the others, which would
+    wait for it in their next collective; so does the end of
+    ``PARALLEL_CLI_TIMEOUT_S``."""
+    from uncertainty_model_tpu_torch.parallel import free_address
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    address = free_address()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank_{r}.pkl") for r in range(n)]
+        procs = [ctx.Process(target=parallel_cli_rank,
+                             args=(r, n, address, home, out, paths[r]))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PARALLEL_CLI_TIMEOUT_S
+        try:
+            while (any(p.is_alive() for p in procs)
+                   and not any(p.exitcode for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * n:
+            fail(f"the parallel CLI's processes exited with {codes} (a "
+                 f"rank killed after {PARALLEL_CLI_TIMEOUT_S} s or after "
+                 "another rank's failure reads -9)")
+        ranks = []
+        for path in paths:
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+    return ranks
+
+
+def run_parallel_cli_across_cards(n, home, out, serial_losses):
+    """``cli.parallel_main`` in ``n`` processes (``--num-processes n``, a
+    card each) on phase 3d's tree for one f32 epoch: on every rank each
+    step of ``TRAIN_BATCH // n`` pairs with 5 + 5 ``warp_rows`` launches,
+    each evaluation batch (``TRAIN_BATCH // n`` and a partial last one)
+    with 1, nothing else; rank 0's outputs; the first epoch's training
+    losses against the serial CLI's on the same global batches
+    (``serial_losses``, phase 3d's) within ``LOSS_RTOL``.  The parallel
+    CLI reports each loss as the sum of the global batches' means over the
+    rank's own images (the JAX package's multi-process rule), ``n`` times
+    the serial figure, so the check divides it by ``n``."""
+    t0 = time.perf_counter()
+    ranks = run_parallel_cli_ranks(n, home, out)
+    seconds = time.perf_counter() - t0
+    per_step = len(warp_groups(TRAIN_BATCH))
+    b = TRAIN_BATCH // n
+    step_sizes = [b] * (CLI_TRAIN_PAIRS // TRAIN_BATCH)
+    eval_sizes = [s // n for s in cli_eval_sizes()]
+    zero = dict.fromkeys(ranks[0]["launches"], 0)
+    for rank, got in enumerate(ranks):
+        if [s for s, _ in got["steps"]] != step_sizes or [
+                s for s, _ in got["evals"]] != eval_sizes:
+            fail(f"parallel CLI rank {rank} ran steps {got['steps']} and "
+                 f"evaluation batches {got['evals']}")
+        for _, counts in got["steps"]:
+            if counts != {**zero, "warp_rows_fwd": per_step,
+                          "warp_rows_bwd": per_step}:
+                fail(f"parallel CLI rank {rank} launched {counts} in a step")
+        for _, counts in got["evals"]:
+            if counts != {**zero, "warp_rows_fwd": 1}:
+                fail(f"parallel CLI rank {rank} launched {counts} in an "
+                     "evaluation batch")
+    training = ranks[0]["results"]["losses"]["training"]
+    rel_losses = {}
+    for key in ("disparity", "uncertainty"):
+        got = training[key][0] / n
+        want = serial_losses["training"][key][0]
+        rel_losses[key] = abs(got - want) / abs(want)
+        log(f"  parallel CLI (world {n}) {key} loss {training[key][0]:.7f} "
+            f"/ {n} = {got:.7f}, the serial CLI's {want:.7f} (rel "
+            f"{rel_losses[key]:.3g}, limit {LOSS_RTOL})")
+        if not rel_losses[key] <= LOSS_RTOL:
+            fail(f"the parallel CLI's {key} loss differs from the serial "
+                 "CLI's")
+    log(f"  parallel CLI, {n} processes: {seconds:.1f} s; every rank "
+        f"{len(step_sizes)} steps of {b} pairs ({per_step} + {per_step} "
+        f"launches each), evaluation batches {eval_sizes} (1 launch each)")
+    return {"world": n, "seconds": seconds,
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "losses": ranks[0]["results"]["losses"],
+            "loss_rel_vs_serial": rel_losses}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -3111,6 +3767,12 @@ def time_serving_timer(forward, forward_b64):
     return line
 
 
+def self_ms(e):
+    """A profiler event's own device time, ms."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+
 def profile_device_time(fn, label, top=12):
     """Device time of one call of ``fn`` by PyTorch operator (self time:
     each kernel counted once, under the operator that launched it; the
@@ -3127,10 +3789,6 @@ def profile_device_time(fn, label, top=12):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def self_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
 
     # device activity: the kernels, copies and sets; a range that code
     # annotated on the device (DDP's forward) is no work of its own
@@ -4022,6 +4680,85 @@ def time_upsample2x2():
     return rows
 
 
+def time_bench():
+    """``python -m uncertainty_model_tpu_torch.bench -v``'s reading, in this
+    process: ``bench.py``'s forward (nomax) at batch 128, the median of 9
+    slope samples; its line is printed beside ``serving_timer``'s (the
+    port's default softmax, "window")."""
+    from uncertainty_model_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    line = bench.bench(verbose=True)
+    log(json.dumps(line))
+    if not (line["value"] > 0 and np.isfinite(line["spread"])):
+        fail(f"the bench's line {line}")
+    torch.cuda.empty_cache()
+    return {**line, "batch": bench.BATCH, "seconds":
+            time.perf_counter() - t0}
+
+
+def ddp_timing_rank(rank, world, device, disp_scale):
+    """One rank of ``time_ddp_world``: the f32 DDP step at ``TRAIN_BATCH``
+    a rank, timed as ``time_train_step`` times it (every rank runs the
+    same steps), then NCCL's share of the device's kernel time in one
+    profiled step."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = flagship_trainer(SEED, device=device, distributed=True)
+    batch = rank_rows(global_stereo(TRAIN_BATCH * world, SEED + 4), rank,
+                      world, device)
+    with lead_prints(rank):
+        step = time_train_step(trainer, batch, disp_scale,
+                               label=f"f32 DDP (world {world})")
+        nccl = nccl_share(lambda: trainer.train_step(batch, disp_scale,
+                                                     TRAIN_LR))
+    return {"train_step": step, "nccl": nccl}
+
+
+def time_ddp_world(n, disp_scale):
+    """The DDP f32 step at ``TRAIN_BATCH`` a rank over ``n`` cards, each
+    rank a fresh process (``ddp_timing_rank``): rank 0's timing, idle
+    share and NCCL share, and every rank's ms/step."""
+    from uncertainty_model_tpu_torch import parallel
+
+    ranks = parallel.spawn(ddp_timing_rank, n, disp_scale=disp_scale)
+    nccl = ranks[0]["nccl"]
+    log(f"  world {n}: NCCL's share of rank 0's device kernel time in a "
+        f"step {nccl['nccl_share']:.4f} ({nccl['nccl_ms']:.2f} of "
+        f"{nccl['device_ms']:.2f} ms)")
+    return {"world": n, **ranks[0],
+            "ms_by_rank": [r["train_step"]["ms"] for r in ranks]}
+
+
+def ddp_scaling(world_1, world_n):
+    """``time_ddp_world``'s readings at a world of N against a world of 1
+    in the same run: ms/step, images/s over all ranks, scaling efficiency
+    (images/s over N times world 1's), rank 0's idle share and NCCL's
+    share of its device kernel time."""
+    n, step, one = world_n["world"], world_n["train_step"], world_1[
+        "train_step"]
+    images = n * TRAIN_BATCH / step["ms"] * 1e3
+    efficiency = images / (n * one["images_per_s"])
+    line = {"world": n, "ms": step["ms"], "ms_spread": step["ms_spread"],
+            "ms_by_rank": world_n["ms_by_rank"], "images_per_s": images,
+            "world_1_ms": one["ms"], "world_1_ms_spread": one["ms_spread"],
+            "world_1_images_per_s": one["images_per_s"],
+            "scaling_efficiency": efficiency,
+            "idle_share": step["device_trace"].get("idle_share"),
+            "world_1_idle_share": one["device_trace"].get("idle_share"),
+            "nccl_share": world_n["nccl"]["nccl_share"],
+            "nccl_ms": world_n["nccl"]["nccl_ms"],
+            "device_kernel_ms": world_n["nccl"]["device_ms"],
+            "world_1_nccl_share": world_1["nccl"]["nccl_share"]}
+    log(f"  DDP f32 step b{TRAIN_BATCH} a rank: world {n} {step['ms']:.2f} "
+        f"ms/step ({images:.1f} images/s), world 1 {one['ms']:.2f} "
+        f"({one['images_per_s']:.1f}), both in fresh processes; scaling "
+        f"efficiency {efficiency:.3f}; rank 0 idle share "
+        f"{line['idle_share']} (world 1: {line['world_1_idle_share']}), "
+        f"NCCL {line['nccl_share']:.4f} of its device kernel time")
+    return line
+
+
 def per_step(rows, key):
     """The sum over one training step's launches of a per-call column."""
     return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -4076,6 +4813,7 @@ def main() -> int:
     from uncertainty_model_tpu_torch.ops.warp_rows import (
         warp_rows_bwd, warp_rows_fwd)
     from uncertainty_model_tpu_torch import parallel
+    from uncertainty_model_tpu_torch.bench import card_line
     from uncertainty_model_tpu_torch.serving import make_serving_forward
 
     serving_counters = {"assemble_z": assemble_z, "gate_z": gate_z,
@@ -4114,7 +4852,6 @@ def main() -> int:
     option_forwards, option_launches, option_errs = run_paths(
         model, serving_counters, x8, ref, OPTION_PATHS)
     option_forwards = {k: option_forwards[k] for k in TIMED_OPTION_PATHS}
-    del x8, ref
 
     phase("3b: training path")
     trainer, batch, disp_scale, train_launches = run_training_path(
@@ -4179,9 +4916,29 @@ def main() -> int:
     s2d_vs_direct = check_s2d_step_against_direct(disp_scale)
     torch.cuda.empty_cache()
 
+    n_cards = torch.cuda.device_count()
+    phase(f"3i: entry points (entry, the bench, dryrun_multichip) on "
+          f"{n_cards} card{'s' if n_cards > 1 else ''}")
+    entry_check = check_entry(model, x8, ref)
+    bench_check = check_bench_forward(model, serving_counters, x8, ref,
+                                      option_launches["smax_nomax"])
+    del x8, ref
+    dryrun = run_dryrun(n_cards)
+    cards = {"count": n_cards, "topology": topology()}
+    if n_cards >= 2:
+        cards["ddp"] = check_ddp_across_cards(n_cards, disp_scale)
+        cards["cli"] = run_parallel_cli_across_cards(
+            n_cards, tree.name, os.path.join(tree.name, f"world_{n_cards}"),
+            cli_run["losses"])
+    else:
+        log("  one card: the cross-card checks (DDP, the parallel CLI) "
+            "need 2 or more")
+    torch.cuda.empty_cache()
+
     phase("4: times")
     fwd = time_forward(forward)
     serving_timer = time_serving_timer(forward, fwd)
+    bench_line = time_bench()
     s2d_fwd = {key: time_forward(f, f"({key}) {S2D_PATHS[key][0]}")
                for key, f in s2d_forwards.items()}
     s2d_fwd["a_lax"] = time_forward(
@@ -4216,6 +4973,9 @@ def main() -> int:
     ddp_breakdown = profile_device_time(
         lambda: ddp_trainer.train_step(batch, disp_scale, TRAIN_LR),
         f"DDP train step b{TRAIN_BATCH}", top=30)
+    if "ddp" in cards:
+        cards["scaling"] = ddp_scaling(time_ddp_world(1, disp_scale),
+                                       time_ddp_world(n_cards, disp_scale))
     del ddp_trainer
     parallel.destroy()
     warps = time_warp_groups()
@@ -4241,6 +5001,9 @@ def main() -> int:
     conv_elu_rows = time_conv_elu()
     upsample_rows = time_upsample2x2()
     log(json.dumps({"forward": fwd, "serving_timer": serving_timer,
+                    "bench": bench_line, "entry": entry_check,
+                    "bench_forward": bench_check, "dryrun": dryrun,
+                    "cards": cards,
                     "s2d_forwards": s2d_fwd,
                     "s2d_vs_eval_model": s2d_errs,
                     "option_forwards": option_fwd,
@@ -4294,6 +5057,8 @@ def main() -> int:
         summed(stages, "assemble_z", csrc + "assemble_z.cu",
                pallas + "decoder_fused.py:250", launches["assemble_z"],
                worst, library=False), option_launches, option_stages)]
+    kernels[0]["launches_bench_forward"] = bench_check["launches"][
+        "assemble_z"]
     # warp_rows: launches counts the whole epoch's; the times cover the 5
     # grouped launches of one training step; the library call is
     # grid_sample (its backward op for the backward) on each problem
@@ -4315,6 +5080,10 @@ def main() -> int:
             "launches_cli_parallel": parallel_cli["launches"][name],
             "launches_s2d_training": s2d_train_launches[name],
             "launches_converted_resume": converted_resume["launches"][name],
+            # rank 0's over the dryrun's three legs
+            "launches_dryrun": sum(dryrun["ranks"][0][leg]["launches"][name]
+                                   for leg in ("tiny", "flagship",
+                                               "flagship_train")),
             "timed_launches": sum(r["launches_per_step"] for r in warps),
             "timed_unit": f"one training step at batch {TRAIN_BATCH}",
             "max_abs_err": warp_worst[d],

@@ -295,6 +295,9 @@ def test_port_imports_with_jax_blocked():
             "import uncertainty_model_tpu_torch.cli.main\n"
             "import uncertainty_model_tpu_torch.cli.parallel_main\n"
             "import uncertainty_model_tpu_torch.parallel\n"
+            "import uncertainty_model_tpu_torch.parallel.launch\n"
+            "import uncertainty_model_tpu_torch.bench\n"
+            "import uncertainty_model_tpu_torch.entry\n"
             "from uncertainty_model_tpu_torch.config import load_config\n"
             "assert load_config('configs/uncertainty.yml')['model']\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

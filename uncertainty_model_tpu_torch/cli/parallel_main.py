@@ -28,8 +28,8 @@ barrier, so that none leaves while process 0 still writes.
 from __future__ import annotations
 
 import argparse
-import socket
 
+from ..parallel.launch import free_address
 from .main import build_parser, main as serial_main
 
 
@@ -47,13 +47,6 @@ def build_parallel_parser() -> argparse.ArgumentParser:
                              "torch.distributed loggers (reference "
                              "parallel_main.py:80-81,275-277).")
     return parser
-
-
-def free_address() -> str:
-    """``localhost:<a port free now>``."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return f"localhost:{s.getsockname()[1]}"
 
 
 def main(args: argparse.Namespace) -> None:
