@@ -32,6 +32,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``smax`` "nomax" and "slice"; (0, ..., 4) with ``s2d_stages=(0, 1)``),
    each count as listed there, bf16 and f32 (``elu_fold`` changes nothing
    in the port, so it has no path of its own);
+3a. run the port's measurement tools (``uncertainty_model_tpu_torch/tools/``)
+   on the flagship at full width (bf16, 256x512), before any other phase
+   has run the profiler: ``trace_chained`` of the
+   bench's forward ("nomax"), the port's default path and
+   ``s2d_stages=(0, 1)`` at batch 128 (k = 3 passes) with
+   ``analyze_trace``'s and ``perf_budget``'s tables, ``trace_infer`` of the
+   eval model in bf16, K1's bytes at batch 64 by the budget's recorder,
+   ``measure_serving``, ``measure_fps`` at batches 1, 2, 4, 8 and 64,
+   ``profile_train_step`` at batch 8 (f32 and bf16) and ``ladder_r5`` of the
+   bench's forward with and without its scopes and "window", interleaved.
+   It fails unless the scopes and ``(outside)`` cover ``ATTRIBUTED_SHARE``
+   of each trace's busy device time, K1's launches fall one a pass in each
+   of dec2-dec4 and K7's 8 in enc0-enc1, no scope's floor exceeds
+   ``FLOOR_SLACK`` times its measured ms, the budget's FLOPs equal
+   ``FlopCounterMode``'s plus the hand kernels' within ``FLOP_RTOL``, K1's
+   counted bytes equal ``assemble_z_work``'s within ``K1_BYTES_RTOL`` and
+   every time is finite and positive; phase 4, once it has timed the
+   bench, fails if the bench's frames/s fall below its reading before the
+   scopes (``BENCH_FPS_BEFORE``) by more than its spread plus
+   ``NO_LOSS_MARGIN`` while the scopes' own cost, read A/B here, exceeds
+   the same share;
 3b. run the training path: ``Trainer.train_one_epoch`` of the flagship in
    f32 (TF32 off) at batch 8, 256x512, a few steps on one seeded stereo
    batch, counters zeroed just before and read after (5 forward and 5
@@ -194,6 +215,7 @@ sites, at batch 64, in bf16 and f32.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import itertools
@@ -212,9 +234,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
-F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
+from uncertainty_model_tpu_torch.tools.perf_budget import (
+    BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S)
+
 SEED = 0
 SMOKE_BATCH = 8     # the main path's batch; the kernels are checked at it
 TIMING_BATCH = 64
@@ -4759,6 +4781,215 @@ def ddp_scaling(world_1, world_n):
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 3a: the measurement tools
+# ---------------------------------------------------------------------------
+
+# the bench's frames/s on one card before the forward had its scopes (the
+# lower of two runs, NVIDIA H100 80GB HBM3, 700 W; PERF.md §6) and its
+# spread there: this run's bench may fall below it by the spread plus
+# NO_LOSS_MARGIN, or else the scopes' own cost, read A/B in this run, must
+# stay within the same share
+BENCH_FPS_BEFORE = 1287.6
+BENCH_SPREAD_BEFORE = 0.0021
+NO_LOSS_MARGIN = 0.005
+ATTRIBUTED_SHARE = 0.97   # scopes + (outside) over the device's busy time
+FLOOR_SLACK = 1.05        # a scope's floor over its measured ms, at most
+FLOP_RTOL = 1e-2          # the budget's FLOPs vs FlopCounterMode's
+K1_BYTES_RTOL = 1e-2      # K1's counted bytes vs assemble_z_work's
+TRACE_K = 3
+SMALL_BATCHES = (1, 2, 4, 8, TIMING_BATCH)
+LADDER_REPS = 4
+
+
+def unscoped(forward):
+    """``forward`` with the serving forward's stage scopes switched off
+    during its calls (the A/B of the scopes' cost)."""
+    from uncertainty_model_tpu_torch import serving
+
+    def run(x):
+        scope, serving.scope = serving.scope, lambda name: contextlib.nullcontext()
+        try:
+            return forward(x)
+        finally:
+            serving.scope = scope
+    return run
+
+
+def window_margins(outdir):
+    """ms from the profiler's window start to its first device activity, and
+    from its last device activity to the window's end, in ``outdir``'s
+    trace (``trace_chained.PAD_S`` keeps both clear of the edges)."""
+    from uncertainty_model_tpu_torch.tools import analyze_trace
+
+    events = analyze_trace.load_events(outdir)
+    window = next(e for e in events if e.get("cat") == "Trace")
+    device = [e for e in events if e.get("cat") in analyze_trace.DEVICE_CATS]
+    first = min(float(e["ts"]) for e in device)
+    last = max(float(e["ts"]) + float(e["dur"]) for e in device)
+    start = float(window["ts"])
+    return (first - start) / 1e3, (start + float(window["dur"]) - last) / 1e3
+
+
+def check_trace(label, traced, kernel, want):
+    """The attribution of a ``trace_chained`` run: the scopes and
+    ``(outside)`` cover ``ATTRIBUTED_SHARE`` of the device's busy time,
+    and ``kernel``'s launches fall in the scopes ``want`` says ({scope:
+    launches a pass})."""
+    from uncertainty_model_tpu_torch.tools.analyze_trace import UNATTRIBUTED
+
+    named = sum(ms for path, ms in traced["by_scope"].items()
+                if path != UNATTRIBUTED)
+    share = named / traced["busy_ms"]
+    margins = window_margins(traced["outdir"])
+    log(f"  {label}: scopes + (outside) {named:.3f} ms of {traced['busy_ms']:.3f}"
+        f" ms busy a pass ({share:.4f}; limit {ATTRIBUTED_SHARE}); joins "
+        f"{traced['joins']}; unattributed {traced['unattributed']}; device "
+        f"work from {margins[0]:.2f} ms after the window's start to "
+        f"{margins[1]:.2f} ms before its end")
+    if not share >= ATTRIBUTED_SHARE:
+        fail(f"{label}: the scopes cover {share:.4f} of the device's busy time")
+    placed = collections.Counter(path for path, op, *_ in traced["items"]
+                                 if op == kernel)
+    got = {path: n / TRACE_K for path, n in placed.items()}
+    log(f"  {label}: {kernel} launches a pass by scope {got} (want {want})")
+    if got != want:
+        fail(f"{label}: {kernel} launches by scope {got}, not {want}")
+    return {"named_ms": named, "busy_ms": traced["busy_ms"], "share": share,
+            "joins": traced["joins"], "unattributed": traced["unattributed"],
+            "window_margins_ms": margins,
+            f"{kernel}_by_scope": got, "by_scope": traced["by_scope"],
+            "wall_ms": traced["wall_ms"]}
+
+
+def check_budget(label, traced, card):
+    """``perf_budget``'s table of a ``trace_chained`` run (printed): no
+    scope's floor above ``FLOOR_SLACK`` times its measured ms, and its
+    FLOPs equal to ``FlopCounterMode``'s count of one pass of the same
+    forward on the same input, the hand kernels' FLOPs added, within
+    ``FLOP_RTOL``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from uncertainty_model_tpu_torch.tools import perf_budget
+
+    result = perf_budget.budget(traced, traced["counts"])
+    log(perf_budget.report(result, card=card))
+    for scope, row in result["scopes"].items():
+        if row["floor_ms"] > FLOOR_SLACK * row["ms"]:
+            fail(f"{label}: {scope}'s floor {row['floor_ms']:.3f} ms is above "
+                 f"{FLOOR_SLACK} x its measured {row['ms']:.3f} ms")
+    rows, kernels = perf_budget.load_counts(traced["counts"])
+    hand = sum(f for (_, name), (_, _, f) in rows.items() if name in kernels)
+    with FlopCounterMode(display=False) as counter:
+        traced["forward"](traced["input"])
+    want = counter.get_total_flops() + hand
+    got = result["total"]["gflop"] * 1e9
+    log(f"  {label}: {got / 1e9:.3f} GFLOP counted, FlopCounterMode "
+        f"{counter.get_total_flops() / 1e9:.3f} + the hand kernels' "
+        f"{hand / 1e9:.3f} (rtol {FLOP_RTOL})")
+    if not abs(got - want) <= FLOP_RTOL * want:
+        fail(f"{label}: the budget's FLOPs {got} are not FlopCounterMode's "
+             f"{want}")
+    return {k: result[k] for k in ("scopes", "total", "floor_share",
+                                   "tc_flop_share", "busy_ms")}
+
+
+def k1_bytes(model):
+    """K1's bytes a bench forward at ``TIMING_BATCH`` by the budget's
+    recorder (``note_kernel``), against ``assemble_z_work``'s (PERF.md
+    §6's 2,207 MB)."""
+    from uncertainty_model_tpu_torch import bench
+    from uncertainty_model_tpu_torch.tools.perf_budget import Recorder
+
+    forward = bench.bench_forward(model)
+    x = images(TIMING_BATCH, SEED + 2)
+    with Recorder() as recorder:
+        forward(x)
+    got = sum(row[1] for (_, name), row in recorder.rows.items()
+              if name == "assemble_z")
+    want = sum(assemble_z_work(TIMING_BATCH, *stage[1:], 2)[0]
+               for stage in ASSEMBLE_Z_STAGES)
+    log(f"  K1 bytes a bench forward at b{TIMING_BATCH}: {got / 1e6:.1f} MB "
+        f"counted, {want / 1e6:.1f} MB by assemble_z_work (rtol "
+        f"{K1_BYTES_RTOL})")
+    if not abs(got - want) <= K1_BYTES_RTOL * want:
+        fail(f"K1's counted bytes {got} are not {want}")
+    return {"counted_bytes": got, "work_bytes": want}
+
+
+def positive_ms(label, values):
+    if not all(np.isfinite(values)) or min(values) <= 0:
+        fail(f"{label}: times {values}")
+
+
+def run_measurement_tools(model, card):
+    """Phase 3a: the port's measurement tools in this process, at the
+    flagship's full width (bf16, 256x512), with their checks."""
+    from uncertainty_model_tpu_torch import bench
+    from uncertainty_model_tpu_torch.serving import make_serving_forward
+    from uncertainty_model_tpu_torch.tools import (
+        ladder_r5, measure_fps, measure_serving, profile_train_step,
+        trace_chained, trace_infer)
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory()
+    traces = {"bench": ({"smax": "nomax"}, "assemble_z",
+                        {"dec2": 1, "dec3": 1, "dec4": 1}),
+              "default": ({}, "assemble_z", {"dec2": 1, "dec3": 1, "dec4": 1}),
+              "s2d": ({"s2d": (0, 1)}, "gated_conv_elu",
+                      {"enc0": 4, "enc1": 4})}
+    for label, (options, kernel, want) in traces.items():
+        traced = trace_chained.run(BENCH_BATCH, os.path.join(tmp.name, label),
+                                   TRACE_K, **options)
+        out[label] = {"options": {k: list(v) if isinstance(v, tuple) else v
+                                  for k, v in options.items()},
+                      "attribution": check_trace(label, traced, kernel, want),
+                      "budget": check_budget(label, traced, card)}
+        del traced
+        torch.cuda.empty_cache()
+    infer = trace_infer.run(BENCH_BATCH, os.path.join(tmp.name, "infer"))
+    out["trace_infer"] = {k: infer[k] for k in ("by_scope", "busy_ms",
+                                                "joins", "unattributed")}
+    tmp.cleanup()
+    out["k1_bytes"] = k1_bytes(model)
+    out["measure_serving"] = measure_serving.run(BENCH_BATCH)
+    out["measure_fps"] = measure_fps.run(SMALL_BATCHES, serving=True)
+    positive_ms("measure_fps", [r["ms"] for r in out["measure_fps"]])
+    torch.cuda.empty_cache()
+    steps = profile_train_step.run(TRAIN_BATCH)
+    positive_ms("profile_train_step", [r["ms"] for r in steps["steps"]])
+    out["profile_train_step"] = steps
+    torch.cuda.empty_cache()
+    # the A/B of the scopes' cost: the bench's forward with and without its
+    # scopes, and the port's default softmax, interleaved
+    ladder = ladder_r5.run((), BENCH_BATCH, LADDER_REPS, forwards={
+        "nomax": bench.bench_forward(model),
+        "nomax_unscoped": unscoped(bench.bench_forward(model)),
+        "window": make_serving_forward(model, torch.bfloat16)})
+    out["scope_cost"] = (ladder["nomax"]["ms"]
+                         / ladder["nomax_unscoped"]["ms"] - 1)
+    out["ladder"] = ladder
+    log(f"  the scopes' cost A/B {out['scope_cost'] * 100:+.3f}% ms/pass")
+    torch.cuda.empty_cache()
+    log(json.dumps({"measurement_tools": out}))
+    return out
+
+
+def check_no_lost_speed(bench_line, scope_cost):
+    """The bench's frames/s against its reading before the scopes, or else
+    the scopes' own cost (phase 3a's A/B)."""
+    floor = BENCH_FPS_BEFORE * (1 - BENCH_SPREAD_BEFORE - NO_LOSS_MARGIN)
+    log(f"  the bench {bench_line['value']} frames/s (before the scopes: "
+        f"{BENCH_FPS_BEFORE}, floor {floor:.1f}); the scopes' cost A/B "
+        f"{scope_cost * 100:+.3f}% ms/pass")
+    if (bench_line["value"] < floor
+            and scope_cost > BENCH_SPREAD_BEFORE + NO_LOSS_MARGIN):
+        fail(f"the bench fell to {bench_line['value']} frames/s and the "
+             f"scopes cost {scope_cost * 100:.3f}%")
+    return {"bench_fps": bench_line["value"], "floor": floor,
+            "scope_cost": scope_cost}
+
+
 def per_step(rows, key):
     """The sum over one training step's launches of a per-call column."""
     return sum(r[key] * r["launches_per_step"] for r in rows)
@@ -4853,6 +5084,9 @@ def main() -> int:
         model, serving_counters, x8, ref, OPTION_PATHS)
     option_forwards = {k: option_forwards[k] for k in TIMED_OPTION_PATHS}
 
+    phase("3a: the measurement tools")
+    tools = run_measurement_tools(model, card)
+
     phase("3b: training path")
     trainer, batch, disp_scale, train_launches = run_training_path(
         train_counters)
@@ -4939,6 +5173,7 @@ def main() -> int:
     fwd = time_forward(forward)
     serving_timer = time_serving_timer(forward, fwd)
     bench_line = time_bench()
+    no_lost_speed = check_no_lost_speed(bench_line, tools["scope_cost"])
     s2d_fwd = {key: time_forward(f, f"({key}) {S2D_PATHS[key][0]}")
                for key, f in s2d_forwards.items()}
     s2d_fwd["a_lax"] = time_forward(
@@ -5001,7 +5236,8 @@ def main() -> int:
     conv_elu_rows = time_conv_elu()
     upsample_rows = time_upsample2x2()
     log(json.dumps({"forward": fwd, "serving_timer": serving_timer,
-                    "bench": bench_line, "entry": entry_check,
+                    "bench": bench_line, "no_lost_speed": no_lost_speed,
+                    "entry": entry_check,
                     "bench_forward": bench_check, "dryrun": dryrun,
                     "cards": cards,
                     "s2d_forwards": s2d_fwd,

@@ -132,7 +132,7 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         raise SystemExit("--resume-from and --finetune-from are exclusive")
 
 
-def _fix_precision(precision: str):
+def fix_precision(precision: str):
     """The model's compute type for ``precision`` (None: f32).  f32
     convolutions and matmuls are full f32 in both: PyTorch runs cuDNN's
     convolutions in TF32 unless told otherwise, so the switches are set
@@ -205,7 +205,7 @@ def main(args: argparse.Namespace) -> None:
     rank, world = parallel.rank(), parallel.world_size()
     device = (parallel.local_device(rank, args.platform) if distributed
               else resolve_device(args.platform))
-    dtype = _fix_precision(args.precision)
+    dtype = fix_precision(args.precision)
 
     print("Arguments passed:")
     for key, value in vars(args).items():

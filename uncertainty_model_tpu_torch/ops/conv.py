@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..utils.scopes import note_kernel, uncounted
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 16}  # the kernel's tiles
@@ -300,6 +301,13 @@ def _gated_conv_elu_cuda(xs, gates, w, b, dims):
     return out
 
 
+def _conv_flops(batch, h, width, c, co, k) -> int:
+    """2 x MACs of a k x k conv from C to Co channels writing (batch, h,
+    width) pixels (the gated sum and the ELU are not counted: elementwise
+    work, as the JAX tool counts it)."""
+    return 2 * batch * h * width * co * k * k * c
+
+
 def gated_conv_elu(xs, gates, w, b, width=None):
     """``ELU(conv(sum_i gates[i] * xs[i], w) + b)`` on PRE-PADDED inputs.
 
@@ -314,10 +322,16 @@ def gated_conv_elu(xs, gates, w, b, width=None):
     """
     dims = _shapes(xs, gates, w, b, width)
     if xs[0].device.type == "cpu":
-        return gated_conv_elu_plain(xs, gates, w, b, width)
-    if xs[0].device.type != "cuda":
+        with uncounted():
+            out = gated_conv_elu_plain(xs, gates, w, b, width)
+    elif xs[0].device.type != "cuda":
         raise RuntimeError(f"gated_conv_elu has no kernel for {xs[0].device}")
-    return _gated_conv_elu_cuda(xs, gates, w, b, dims)
+    else:
+        out = _gated_conv_elu_cuda(xs, gates, w, b, dims)
+    _, batch, h, _, width, c, co, k = dims
+    note_kernel("gated_conv_elu", (*xs, gates, w, b), (out,),
+                flops=_conv_flops(batch, h, width, c, co, k))
+    return out
 
 
 def conv_elu(x, w, b):
@@ -329,8 +343,12 @@ def conv_elu(x, w, b):
     ``conv_elu.launches``), or raise.
     """
     batch, h, width, c, co, k = _conv_elu_shapes(x, w, b)
+    operands, flops = (x, w, b), _conv_flops(batch, h, width, c, co, k)
     if x.device.type == "cpu":
-        return conv_elu_plain(x, w, b)
+        with uncounted():
+            out = conv_elu_plain(x, w, b)
+        note_kernel("conv_elu", operands, (out,), flops=flops)
+        return out
     if x.device.type != "cuda":
         raise RuntimeError(f"conv_elu has no kernel for {x.device}")
     code, w, b, plan, lib = _kernel_operands("conv_elu", [x], w, b, h, width,
@@ -344,6 +362,7 @@ def conv_elu(x, w, b):
     if err != 0:
         raise RuntimeError(f"conv_elu kernel launch failed: CUDA error {err}")
     conv_elu.launches += 1
+    note_kernel("conv_elu", operands, (out,), flops=flops)
     return out
 
 

@@ -31,6 +31,7 @@ from .. import _build
 from .resize import (bf16_weights, lerp_taps, resize_bf16_weights,
                      resize_bilinear)
 from .shuffle import shuffle_phase_major
+from ..utils.scopes import note_kernel, uncounted
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CSO = 1024  # a row block of one channel a thread holds Cso threads
@@ -420,8 +421,12 @@ def assemble_z(se_fm, skip_h, xc, disp_h, bias, k_fm=None):
     the kernel (and count the launch in ``assemble_z.launches``) or raise.
     """
     b, h, w, cso, cu, cd, cf = _shapes(se_fm, skip_h, xc, disp_h, bias, k_fm)
+    operands = (se_fm, k_fm, skip_h, xc, disp_h, bias)
     if not _on_cuda("assemble_z", se_fm):
-        return assemble_z_plain(se_fm, skip_h, xc, disp_h, bias, k_fm)
+        with uncounted():
+            cat, mean = assemble_z_plain(se_fm, skip_h, xc, disp_h, bias, k_fm)
+        note_kernel("assemble_z", operands, (cat, mean))
+        return cat, mean
     code, (bias32, kfm32) = _check_cuda(
         "assemble_z", [t for t in (se_fm, skip_h, xc, disp_h) if t is not None],
         [bias, k_fm], cso)
@@ -440,6 +445,7 @@ def assemble_z(se_fm, skip_h, xc, disp_h, bias, k_fm=None):
             partial.data_ptr(), mean.data_ptr(), count.data_ptr(),
             b, h, w, cso, cu, cd, cf, *plan_args)
     assemble_z.launches += 1
+    note_kernel("assemble_z", operands, (cat, mean))
     return cat, mean
 
 
@@ -454,8 +460,13 @@ def gate_z(cat, gates, cso):
     if tuple(gates.shape) != (cat.shape[0], cso):
         raise ValueError(f"gates {tuple(gates.shape)} are not "
                          f"({cat.shape[0]}, {cso})")
+    z = cat[..., :cso]   # read and written: counted on both sides
+    operands = (z, gates)
     if not _on_cuda("gate_z", cat):
-        return gate_z_plain(cat, gates, cso)
+        with uncounted():
+            cat = gate_z_plain(cat, gates, cso)
+        note_kernel("gate_z", operands, (z,))
+        return cat
     gates = gates.to(dtype=cat.dtype).contiguous()
     code, _ = _check_cuda("gate_z", [cat, gates], [], cso)
     b, h, w, ccat = cat.shape
@@ -463,6 +474,7 @@ def gate_z(cat, gates, cso):
     _launch("decoder_fused", "umt_gate_z", cat.device, code, cat.data_ptr(),
             gates.data_ptr(), b, h * w * ccat, ccat, cso)
     gate_z.launches += 1
+    note_kernel("gate_z", operands, (z,))
     return cat
 
 
@@ -473,8 +485,12 @@ def se_squeeze(se_fm, skip_h, bias, k_fm=None):
     the kernel (and count the launch in ``se_squeeze.launches``) or
     raise."""
     b, h, w, cso, _, _, cf = _shapes(se_fm, skip_h, None, None, bias, k_fm)
+    operands = (se_fm, k_fm, skip_h, bias)
     if not _on_cuda("se_squeeze", se_fm):
-        return se_squeeze_plain(se_fm, skip_h, bias, k_fm)
+        with uncounted():
+            mean = se_squeeze_plain(se_fm, skip_h, bias, k_fm)
+        note_kernel("se_squeeze", operands, (mean,))
+        return mean
     code, (bias32, kfm32) = _check_cuda("se_squeeze", [se_fm, skip_h],
                                         [bias, k_fm], cso)
     dev = se_fm.device
@@ -490,6 +506,7 @@ def se_squeeze(se_fm, skip_h, bias, k_fm=None):
             partial.data_ptr(), mean.data_ptr(), count.data_ptr(),
             b, h, w, cso, cf, *plan_args)
     se_squeeze.launches += 1
+    note_kernel("se_squeeze", operands, (mean,))
     return mean
 
 
@@ -506,8 +523,12 @@ def assemble(se_fm, skip_h, gates, xc, disp_h, bias, k_fm=None):
     count the launch in ``assemble.launches``) or raise."""
     b, h, w, cso, cu, cd, cf = _shapes(se_fm, skip_h, xc, disp_h, bias, k_fm,
                                        gates)
+    operands = (se_fm, k_fm, skip_h, gates, xc, disp_h, bias)
     if not _on_cuda("assemble", se_fm):
-        return assemble_plain(se_fm, skip_h, gates, xc, disp_h, bias, k_fm)
+        with uncounted():
+            cat = assemble_plain(se_fm, skip_h, gates, xc, disp_h, bias, k_fm)
+        note_kernel("assemble", operands, (cat,))
+        return cat
     gates = gates.to(dtype=skip_h.dtype).contiguous()
     code, (bias32, kfm32) = _check_cuda(
         "assemble", [t for t in (se_fm, skip_h, gates, xc, disp_h)
@@ -521,6 +542,7 @@ def assemble(se_fm, skip_h, gates, xc, disp_h, bias, k_fm=None):
             _ptr(disp_h), bias32.data_ptr(), taps.data_ptr(), cat.data_ptr(),
             b, h, w, cso, cu, cd, cf, *plan_args)
     assemble.launches += 1
+    note_kernel("assemble", operands, (cat,))
     return cat
 
 

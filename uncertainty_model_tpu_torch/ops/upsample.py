@@ -20,6 +20,7 @@ import torch
 
 from .. import _build
 from .resize import _lerp_coeffs
+from ..utils.scopes import note_kernel, uncounted
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -85,7 +86,10 @@ def upsample2x2(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"upsample2x2 takes a non-empty NHWC tensor, not "
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
-        return upsample2x2_plain(x)
+        with uncounted():
+            out = upsample2x2_plain(x)
+        note_kernel("upsample2x2", (x,), (out,))
+        return out
     if x.device.type != "cuda":
         raise RuntimeError(f"upsample2x2 has no kernel for {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -106,6 +110,7 @@ def upsample2x2(x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"upsample2x2 kernel launch failed: CUDA error "
                            f"{err}")
     upsample2x2.launches += 1
+    note_kernel("upsample2x2", (x,), (out,))
     return out
 
 

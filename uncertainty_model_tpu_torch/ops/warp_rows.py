@@ -24,6 +24,7 @@ import functools
 import torch
 
 from .. import _build
+from ..utils.scopes import note_kernel, uncounted
 
 # the backward kernel holds a row's dsrc (W * C f32) in one block's shared
 # memory
@@ -159,11 +160,14 @@ def warp_rows_fwd_many(xs, srcs) -> list:
     version problem by problem on CPU tensors, one kernel launch for the
     group on CUDA tensors (or raise)."""
     if _check_group(xs, srcs):
-        return [warp_rows_plain(x, src) for x, src in zip(xs, srcs)]
-    outs = [torch.empty_like(src) for src in srcs]
-    _launch("fwd", [(x, src, None, out, None)
-                    for x, src, out in zip(xs, srcs, outs)],
-            srcs[0].shape[2])
+        with uncounted():
+            outs = [warp_rows_plain(x, src) for x, src in zip(xs, srcs)]
+    else:
+        outs = [torch.empty_like(src) for src in srcs]
+        _launch("fwd", [(x, src, None, out, None)
+                        for x, src, out in zip(xs, srcs, outs)],
+                srcs[0].shape[2])
+    note_kernel("warp_rows_fwd", (*xs, *srcs), outs)
     return outs
 
 
@@ -172,8 +176,11 @@ def warp_rows_bwd_many(xs, srcs, douts):
     ``douts``: the plain version problem by problem on CPU tensors, one
     kernel launch for the group on CUDA tensors (or raise)."""
     if _check_group(xs, srcs, douts):
-        grads = [warp_rows_bwd_plain(*p) for p in zip(xs, srcs, douts)]
-        return [g[0] for g in grads], [g[1] for g in grads]
+        with uncounted():
+            grads = [warp_rows_bwd_plain(*p) for p in zip(xs, srcs, douts)]
+        dxs, dsrcs = [g[0] for g in grads], [g[1] for g in grads]
+        note_kernel("warp_rows_bwd", (*xs, *srcs, *douts), (*dxs, *dsrcs))
+        return dxs, dsrcs
     c = srcs[0].shape[2]
     for src in srcs:
         if 4 * src.shape[1] * c > _MAX_SHARED_BYTES:
@@ -183,6 +190,7 @@ def warp_rows_bwd_many(xs, srcs, douts):
     dxs = [torch.empty_like(x) for x in xs]
     dsrcs = [torch.empty_like(src) for src in srcs]
     _launch("bwd", list(zip(xs, srcs, douts, dsrcs, dxs)), c)
+    note_kernel("warp_rows_bwd", (*xs, *srcs, *douts), (*dxs, *dsrcs))
     return dxs, dsrcs
 
 

@@ -38,6 +38,11 @@ convs apply it, but every consumer here is a plain conv that takes the
 ELU'd tensor, so the port computes the ELU once, in the stage, and the
 result is the same tensor.
 
+The forward runs each encoder stage in ``utils/scopes.py::scope(f"enc{i}")``
+and each decoder stage in ``scope(f"dec{i}")``, the JAX package's
+``jax.named_scope`` names; an s2d stage's ``depth_to_space`` runs outside
+its scope, as there.
+
 Softmaxes subtract their max and sum in f32 by default (``smax="window"``;
 the JAX package's default, "nomax", drops the max: the two are equal in
 exact arithmetic, and only this one cannot overflow).
@@ -62,6 +67,7 @@ from .ops.decoder_fused import assemble, assemble_z, gate_z, se_squeeze
 from .ops.s2d import (block_diag_1x1_kernel, depth_to_space, s2d_bias,
                       s2d_conv_kernel, s2d_in_stride2_conv_kernel,
                       s2d_out_stride2_conv_kernel, space_to_depth)
+from .utils.scopes import scope
 
 FUSED_STAGES = (2, 3, 4)
 FOLD_MAX_CHANNELS = 8
@@ -509,7 +515,8 @@ def make_serving_forward(model, dtype=torch.bfloat16, device=None, *,
         x = nchw(x_nhwc.to(device=dev, dtype=dtype).contiguous())
         feats, h = [], x
         for i, (spec, prm) in enumerate(zip(enc_specs, params["encoder"])):
-            h = _encoder_stage(prm, spec, h)
+            with scope(f"enc{i}"):
+                h = _encoder_stage(prm, spec, h)
             # the decoder takes native skips; an s2d stage hands its s2d
             # output on to a successor that reads s2d input, and the one
             # depth_to_space serves both the skip and any other successor
@@ -522,10 +529,12 @@ def make_serving_forward(model, dtype=torch.bfloat16, device=None, *,
         # the reference's hard-wired dataflow: the deepest map is its own skip
         fms = (f4, f3, f2, f1, x)
         out, skip, disp = x4, x4, None
-        for spec, prm, fm in zip(dec_specs, params["decoder"], fms):
+        for i, (spec, prm, fm) in enumerate(zip(dec_specs, params["decoder"],
+                                                fms)):
             stage = _fused_stage if spec["fused"] else _decoder_stage
-            out, skip, disp = stage(prm, spec, out, fm, skip, disp,
-                                    disp_scale)
+            with scope(f"dec{i}"):
+                out, skip, disp = stage(prm, spec, out, fm, skip, disp,
+                                        disp_scale)
         return nhwc(disp).contiguous()
 
     return forward

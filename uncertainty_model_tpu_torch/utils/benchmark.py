@@ -27,6 +27,45 @@ import torch
 from ..device import resolve_device
 
 
+def chain(forward, x0: torch.Tensor, k: int) -> torch.Tensor:
+    """``k`` chained passes of ``forward`` from ``x0`` in bf16, each pass's
+    input the previous input times ``1 + 1e-6 * out[..., :3]``; returns
+    the last input."""
+    x = x0.to(torch.bfloat16)
+    with torch.no_grad():
+        for _ in range(k):
+            out = forward(x)
+            x = x * (1.0 + 1e-6 * out[..., :3].to(x.dtype))
+    return x
+
+
+def slope_sample(forward, x0: torch.Tensor, k1: int = 2,
+                 k2: int = 8) -> float:
+    """One sample: a chain of ``k1`` passes, then one of ``k2``, timed on
+    ``x0``'s device; ``((t2 - t1) - (t1 - t0)) / (k2 - k1)`` seconds a
+    pass."""
+    if x0.device.type == "cuda":
+        stream = torch.cuda.current_stream(x0.device)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record(stream)
+        chain(forward, x0, k1)
+        marks[1].record(stream)
+        chain(forward, x0, k2)
+        marks[2].record(stream)
+        marks[2].synchronize()
+        t10 = marks[0].elapsed_time(marks[1]) / 1e3
+        t21 = marks[1].elapsed_time(marks[2]) / 1e3
+    elif x0.device.type == "cpu":
+        t0 = time.perf_counter()
+        chain(forward, x0, k1)
+        t1 = time.perf_counter()
+        chain(forward, x0, k2)
+        t10, t21 = t1 - t0, time.perf_counter() - t1
+    else:
+        raise ValueError(f"no timer for device {x0.device}")
+    return (t21 - t10) / (k2 - k1)
+
+
 def measure_forward_samples(forward, batch: int, *, k1: int = 2, k2: int = 8,
                             reps: int = 3, image_hw=(256, 512),
                             device=None) -> list:
@@ -38,40 +77,10 @@ def measure_forward_samples(forward, batch: int, *, k1: int = 2, k2: int = 8,
     dev = resolve_device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no timer for device {dev}")
-    h, w = image_hw
-    x0 = torch.full((batch, h, w, 3), 0.5, device=dev)
-
-    @torch.no_grad()
-    def chain(k):
-        x = x0.to(torch.bfloat16)
-        for _ in range(k):
-            out = forward(x)
-            x = x * (1.0 + 1e-6 * out[..., :3].to(x.dtype))
-        return x
-
-    chain(k1)
-    chain(k2)
-    samples = []
-    for _ in range(reps):
-        if dev.type == "cuda":
-            stream = torch.cuda.current_stream(dev)
-            marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            marks[0].record(stream)
-            chain(k1)
-            marks[1].record(stream)
-            chain(k2)
-            marks[2].record(stream)
-            marks[2].synchronize()
-            t10 = marks[0].elapsed_time(marks[1]) / 1e3
-            t21 = marks[1].elapsed_time(marks[2]) / 1e3
-        else:
-            t0 = time.perf_counter()
-            chain(k1)
-            t1 = time.perf_counter()
-            chain(k2)
-            t10, t21 = t1 - t0, time.perf_counter() - t1
-        samples.append((t21 - t10) / (k2 - k1))
-    return samples
+    x0 = torch.full((batch, *image_hw, 3), 0.5, device=dev)
+    chain(forward, x0, k1)
+    chain(forward, x0, k2)
+    return [slope_sample(forward, x0, k1, k2) for _ in range(reps)]
 
 
 def measure_forward(forward, batch: int, *, k1: int = 2, k2: int = 8,
