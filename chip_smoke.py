@@ -33,8 +33,7 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    each count as listed there, bf16 and f32 (``elu_fold`` changes nothing
    in the port, so it has no path of its own);
 3a. run the port's measurement tools (``uncertainty_model_tpu_torch/tools/``)
-   on the flagship at full width (bf16, 256x512), before any other phase
-   has run the profiler: ``trace_chained`` of the
+   on the flagship at full width (bf16, 256x512): ``trace_chained`` of the
    bench's forward ("nomax"), the port's default path and
    ``s2d_stages=(0, 1)`` at batch 128 (k = 3 passes) with
    ``analyze_trace``'s and ``perf_budget``'s tables, ``trace_infer`` of the
@@ -170,6 +169,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    per step and evaluation batch, rank 0's outputs, the losses within
    1e-4 of phase 3d's serial run (divided by N: the parallel CLI sums the
    global batches' means over a rank's own images);
+3j. hold ``ops.reconstruct_pyramid`` (the stereo warps without the
+   LR-consistency pair) on the card against the same call on the CPU (f32,
+   1e-5; one ``warp_rows`` forward launch a call, nothing else); run
+   ``bash scripts/torch_demo_train.sh`` (the flagship, 256x512, on this
+   card) and ``bash scripts/torch_multi_gpu_job.sh`` (a process per card
+   present, ``--batch-size`` 8 a card, at most the 16 pairs) for one epoch
+   on phase 3d's tree, each Python process of theirs recording its steps'
+   and evaluation batches' launches (``LAUNCH_RECORDER``): exit 0, phase
+   3d's launches in every step and evaluation batch, rank 0's checkpoints,
+   PNGs and ``results.json`` as phase 3d's;
 4. time the bench path also with the package's forward timer
    (``utils/benchmark.py``: slopes of chained passes, 9 samples) at batch
    64 and 128 (``bench.py``'s), printed as the ``serving_timer`` line beside
@@ -205,7 +214,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    and beside a thread running Python without pause) with one file's
    decode stages, and the step fed by it beside the same batches as numpy
    arrays and on the card, with the device's idle share of a fed epoch;
+4c. trace the bench chain again, late in this process (``late_trace``):
+   every launch with its device record, K1 3 of 3 a pass, the attribution
+   and the busy time within 2% of phase 3a's;
 5. print the ``kernels`` line, then the device line last.
+
+Every profiled window (``profiled``, and ``trace_chained``'s) opens after a
+profiler warm-up step and fails the run where a launch in it has no device
+record (``analyze_trace.lost_device_records``).
 
 Phase 2 also holds ``conv_elu`` (the SAME zero-pad conv, the ungated mode
 of the ``gated_conv_elu`` kernel) at the native encoder's five interior
@@ -1901,6 +1917,7 @@ def run_cli_path(counters, home, out):
     log(f"  resumed final vs uninterrupted final: max abs {diff:.3g} over "
         f"{len(a)} tensors (logged; cuDNN's backward is not deterministic)")
     return {"launches": launches, "step_launches": steps[0][1],
+            "eval_launches": evals[0][1],
             "eval_batch_sizes": [b for b, _ in evals],
             "losses": results["losses"],
             "resumed": {"launches": r_launches,
@@ -2852,13 +2869,9 @@ def count_collectives(trainer, batch, disp_scale):
     DDP bucket, one for the losses."""
     from torch.autograd import DeviceType
 
-    trainer.train_step(batch, disp_scale, TRAIN_LR)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        trainer.train_step(batch, disp_scale, TRAIN_LR)
-        torch.cuda.synchronize()
+    prof, _, _ = profiled(
+        lambda: trainer.train_step(batch, disp_scale, TRAIN_LR),
+        "a DDP step's collectives")
     events = prof.key_averages()
     calls = sum(e.count for e in events if e.key == "c10d::allreduce_")
     kernels = {e.key: e.count for e in events
@@ -3328,13 +3341,7 @@ def nccl_share(fn):
     ranks included)."""
     from torch.autograd import DeviceType
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _, _ = profiled(fn, "NCCL's share")
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -3635,6 +3642,227 @@ def run_parallel_cli_across_cards(n, home, out, serial_losses):
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: the last public names and the launch scripts
+# ---------------------------------------------------------------------------
+
+RECON_TOL = 1e-5     # reconstruct_pyramid, card vs CPU, f32 (as on the CPU
+                     # against the JAX package)
+SCRIPT_EVAL_PAIRS = 8    # --validation-size of the script runs: one batch
+SCRIPT_TIMEOUT_S = 300
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# a ``python`` first on the scripts' PATH runs this file with the script's
+# arguments: it records each training step's and evaluation batch's kernel
+# launches (as ``run_cli`` does in this process), then runs ``-m <module>``
+# as ``python -m`` would; the records go to $CHIP_SMOKE_LAUNCH_DIR/<pid>.json
+LAUNCH_RECORDER = '''\
+import atexit, json, os, runpy, sys
+
+if sys.argv[1:2] != ["-m"]:
+    os.execv(sys.executable, [sys.executable] + sys.argv[1:])
+sys.path.insert(0, os.getcwd())
+from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
+from uncertainty_model_tpu_torch.ops.decoder_fused import (
+    assemble, assemble_z, gate_z, se_squeeze)
+from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
+from uncertainty_model_tpu_torch.ops.warp_rows import warp_rows_bwd, warp_rows_fwd
+from uncertainty_model_tpu_torch.train import evaluate, trainer
+
+counters = {"assemble_z": assemble_z, "gate_z": gate_z,
+            "se_squeeze": se_squeeze, "assemble": assemble,
+            "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
+            "upsample2x2": upsample2x2, "warp_rows_fwd": warp_rows_fwd,
+            "warp_rows_bwd": warp_rows_bwd}
+record = {"argv": sys.argv[3:], "steps": [], "evals": []}
+
+
+def recorded(fn, into):
+    def wrapper(*args, **kwargs):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn(*args, **kwargs)
+        into.append((len(args[1]["left"]),
+                     {k: c.launches - before[k] for k, c in counters.items()}))
+        return out
+    return wrapper
+
+
+def dump():
+    record["launches"] = {k: c.launches for k, c in counters.items()}
+    path = os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"],
+                        f"{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(record, f)
+
+
+trainer.Trainer.train_step = recorded(trainer.Trainer.train_step,
+                                      record["steps"])
+evaluate.eval_step = recorded(evaluate.eval_step, record["evals"])
+atexit.register(dump)
+module = sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+'''
+
+
+def check_reconstruct_pyramid(counters):
+    """``ops.reconstruct_pyramid`` (the stereo warps without the
+    LR-consistency pair) at the flagship's 4 scales, batch ``TRAIN_BATCH``,
+    f32, on the card against the same call on the CPU (``RECON_TOL``): one
+    ``warp_rows`` forward launch a call, for all scales and both views,
+    and no other kernel."""
+    from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT
+    from uncertainty_model_tpu_torch.ops import reconstruct_pyramid
+
+    h, w = FLAGSHIP_INPUT
+    rng = card_rng(SEED + 40)
+    disps = [torch.rand(TRAIN_BATCH, h >> i, w >> i, 4, device="cuda",
+                        generator=rng) * 0.4 - 0.1 for i in range(4)]
+    pyramid = [torch.rand(TRAIN_BATCH, h >> i, w >> i, 6, device="cuda",
+                          generator=rng) for i in range(4)]
+    for fn in counters.values():
+        fn.launches = 0
+    got = reconstruct_pyramid(disps, pyramid)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = reconstruct_pyramid([d.cpu() for d in disps],
+                               [p.cpu() for p in pyramid])
+    err = max((g.cpu() - x).abs().max().item() for g, x in zip(got, want))
+    log(f"  reconstruct_pyramid (4 scales, b{TRAIN_BATCH}, f32): launches "
+        f"{launches}; card vs CPU max abs {err:.3g} (limit {RECON_TOL})")
+    expected = {**dict.fromkeys(launches, 0), "warp_rows_fwd": 1}
+    if launches != expected:
+        fail(f"reconstruct_pyramid launched {launches}, not {expected}")
+    if [tuple(g.shape) for g in got] != [tuple(p.shape) for p in pyramid]:
+        fail("reconstruct_pyramid's shapes")
+    if not err <= RECON_TOL:
+        fail(f"reconstruct_pyramid on the card differs from the CPU by {err}")
+    return {"launches": launches, "max_abs_vs_cpu": err}
+
+
+def run_script(name, home, out, *extra, env=None):
+    """``bash scripts/<name>`` for one epoch on phase 3d's tree, the output
+    folders under ``out`` and ``extra`` appended to its flags, each of its
+    Python processes recording its launches (``LAUNCH_RECORDER``); the
+    script's process group is stopped at ``SCRIPT_TIMEOUT_S``.  Returns
+    (seconds, the processes' records)."""
+    import signal
+
+    tools = os.path.join(out, "tools")
+    launches = os.path.join(out, "launches")
+    os.makedirs(tools)
+    os.makedirs(launches)
+    with open(os.path.join(tools, "record_launches.py"), "w") as f:
+        f.write(LAUNCH_RECORDER)
+    with open(os.path.join(tools, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" '
+                f'"{tools}/record_launches.py" "$@"\n')
+    os.chmod(os.path.join(tools, "python"), 0o755)
+    argv = ["bash", os.path.join(ROOT, "scripts", name), "--home", home,
+            "--epochs", "1", "--training-size", str(CLI_TRAIN_PAIRS),
+            "--validation-size", str(SCRIPT_EVAL_PAIRS),
+            "--save-model-every", "1", "--evaluate-every", "1",
+            "--save-model-to", os.path.join(out, "trained"),
+            "--save-results-to", os.path.join(out, "results"), *extra]
+    full_env = {**os.environ, **(env or {}), "CHIP_SMOKE_LAUNCH_DIR": launches,
+                "PATH": tools + os.pathsep + os.environ.get("PATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, env=full_env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        output, _ = proc.communicate(timeout=SCRIPT_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    lines = output.splitlines()
+    for line in lines[-12:]:
+        log(f"  | {line[-200:]}")
+    if proc.returncode != 0:
+        fail(f"bash scripts/{name} exited with {proc.returncode}")
+    records = []
+    if not os.listdir(launches):
+        fail(f"bash scripts/{name} ran no recorded Python process")
+    for path in sorted(os.listdir(launches)):
+        with open(os.path.join(launches, path)) as f:
+            records.append(json.load(f))
+    log(f"  bash scripts/{name}: exit 0 in {seconds:.1f} s, "
+        f"{len(records)} process{'es' if len(records) > 1 else ''}")
+    return seconds, records
+
+
+def check_script_run(name, records, parallel, step_batch, eval_sizes,
+                     step_launches, eval_launches):
+    """Each process of a script run: one epoch of ``CLI_TRAIN_PAIRS //
+    global batch`` steps of ``step_batch`` pairs and evaluation batches of
+    ``eval_sizes``, each step's and evaluation batch's launches phase 3d's
+    (``step_launches``, ``eval_launches``); the outputs of the writing
+    process (rank 0) as ``check_cli_outputs`` holds phase 3d's."""
+    from uncertainty_model_tpu_torch.cli import main as serial
+    from uncertainty_model_tpu_torch.cli import parallel_main
+
+    build = (parallel_main.build_parallel_parser if parallel
+             else serial.build_parser)
+    results = None
+    for record in records:
+        args = build().parse_args(record["argv"])
+        n_steps = CLI_TRAIN_PAIRS // args.batch_size
+        steps = [tuple(s) for s in record["steps"]]
+        evals = [tuple(e) for e in record["evals"]]
+        if [b for b, _ in steps] != [step_batch] * n_steps or [
+                b for b, _ in evals] != eval_sizes:
+            fail(f"{name}: steps of {[b for b, _ in steps]} and evaluation "
+                 f"batches of {[b for b, _ in evals]}")
+        for kind, rows, want in (("step", steps, step_launches),
+                                 ("evaluation batch", evals, eval_launches)):
+            for b, got in rows:
+                if got != want:
+                    fail(f"{name}: a {kind} of batch {b} launched {got}, "
+                         f"not phase 3d's {want}")
+        if not parallel or args.process_id == 0:
+            runs = os.listdir(args.save_model_to)
+            if len(runs) != 1:
+                fail(f"{name} wrote run folders {runs}")
+            results = check_cli_outputs(args, runs[0], 1)
+    log(f"  {name}: every process {n_steps} step(s) of {step_batch} pairs "
+        f"and evaluation batches {eval_sizes}, each with phase 3d's launches")
+    return {"processes": len(records), "steps": n_steps,
+            "step_batch": step_batch, "eval_batches": eval_sizes,
+            "launches": [r["launches"] for r in records],
+            "losses": results["losses"]}
+
+
+def run_launch_scripts(home, out, cli_run):
+    """``scripts/torch_demo_train.sh`` on this card and
+    ``scripts/torch_multi_gpu_job.sh`` over every card present, each one
+    epoch of phase 3d's tree at the flagship's full width (the
+    ``--batch-size`` of the job 8 a card, at most the epoch's
+    ``CLI_TRAIN_PAIRS``, so that the pairs make whole steps)."""
+    from uncertainty_model_tpu_torch.parallel import free_address
+
+    n = torch.cuda.device_count()
+    step, evals = cli_run["step_launches"], cli_run["eval_launches"]
+    demo_s, demo = run_script("torch_demo_train.sh", home,
+                              os.path.join(out, "demo"))
+    demo = check_script_run("torch_demo_train.sh", demo, False, TRAIN_BATCH,
+                            [SCRIPT_EVAL_PAIRS], step, evals)
+    batch = min(TRAIN_BATCH * n, CLI_TRAIN_PAIRS // n * n)
+    job_s, job = run_script(
+        "torch_multi_gpu_job.sh", home, os.path.join(out, "job"),
+        "--batch-size", str(batch),
+        env={"COORDINATOR": free_address(), "LOCAL_CARDS": str(n)})
+    if len(job) != n:
+        fail(f"torch_multi_gpu_job.sh started {len(job)} processes on {n} "
+             "cards")
+    job = check_script_run("torch_multi_gpu_job.sh", job, True, batch // n,
+                           [SCRIPT_EVAL_PAIRS // n], step, evals)
+    return {"demo_train": {**demo, "seconds": demo_s},
+            "multi_gpu_job": {**job, "cards": n, "global_batch": batch,
+                              "seconds": job_s}}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
 
@@ -3789,6 +4017,30 @@ def time_serving_timer(forward, forward_b64):
     return line
 
 
+# every profiled window of this run: (label, launches), each launch with
+# its device record (``profiled``)
+PROFILED_WINDOWS = []
+
+
+def profiled(fn, label, activities=None):
+    """``trace_chained.profile`` of ``fn`` on the current card: a warm-up
+    step, then one call in the profiler's window; the run fails if a launch
+    in the window has no device record.  Returns (the profiler, the trace's
+    events, the wall seconds of the call)."""
+    from uncertainty_model_tpu_torch.tools import analyze_trace
+    from uncertainty_model_tpu_torch.tools.trace_chained import (
+        LostDeviceRecords, profile)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        prof, events, wall = profile(fn, dev, activities)
+    except LostDeviceRecords as e:
+        fail(f"{label}: {e}")
+    PROFILED_WINDOWS.append(
+        (label, len(analyze_trace.launch_records(events))))
+    return prof, events, wall
+
+
 def self_ms(e):
     """A profiler event's own device time, ms."""
     return getattr(e, "self_device_time_total",
@@ -3802,15 +4054,8 @@ def profile_device_time(fn, label, top=12):
     idle share over the call's wall time."""
     from torch.autograd import DeviceType
 
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, _, wall = profiled(fn, f"profiled {label}")
+    wall_ms = wall * 1e3
 
     # device activity: the kernels, copies and sets; a range that code
     # annotated on the device (DDP's forward) is no work of its own
@@ -3859,11 +4104,8 @@ def device_busy_and_gaps(fn):
     gaps between them in order."""
     from torch.autograd import DeviceType
 
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof, _, _ = profiled(fn, "a device trace",
+                          [torch.profiler.ProfilerActivity.CUDA])
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -4798,6 +5040,7 @@ FLOOR_SLACK = 1.05        # a scope's floor over its measured ms, at most
 FLOP_RTOL = 1e-2          # the budget's FLOPs vs FlopCounterMode's
 K1_BYTES_RTOL = 1e-2      # K1's counted bytes vs assemble_z_work's
 TRACE_K = 3
+LATE_BUSY_RTOL = 0.02   # phase 4c's busy time against phase 3a's
 SMALL_BATCHES = (1, 2, 4, 8, TIMING_BATCH)
 LADDER_REPS = 4
 
@@ -4819,7 +5062,7 @@ def unscoped(forward):
 def window_margins(outdir):
     """ms from the profiler's window start to its first device activity, and
     from its last device activity to the window's end, in ``outdir``'s
-    trace (``trace_chained.PAD_S`` keeps both clear of the edges)."""
+    trace (``trace_chained.PAD_S`` of idle device at both ends)."""
     from uncertainty_model_tpu_torch.tools import analyze_trace
 
     events = analyze_trace.load_events(outdir)
@@ -4838,10 +5081,15 @@ def check_trace(label, traced, kernel, want):
     launches a pass})."""
     from uncertainty_model_tpu_torch.tools.analyze_trace import UNATTRIBUTED
 
+    from uncertainty_model_tpu_torch.tools import analyze_trace
+
     named = sum(ms for path, ms in traced["by_scope"].items()
                 if path != UNATTRIBUTED)
     share = named / traced["busy_ms"]
     margins = window_margins(traced["outdir"])
+    events = analyze_trace.load_events(traced["outdir"])
+    PROFILED_WINDOWS.append(
+        (f"trace_chained {label}", len(analyze_trace.launch_records(events))))
     log(f"  {label}: scopes + (outside) {named:.3f} ms of {traced['busy_ms']:.3f}"
         f" ms busy a pass ({share:.4f}; limit {ATTRIBUTED_SHARE}); joins "
         f"{traced['joins']}; unattributed {traced['unattributed']}; device "
@@ -4928,8 +5176,8 @@ def run_measurement_tools(model, card):
     from uncertainty_model_tpu_torch import bench
     from uncertainty_model_tpu_torch.serving import make_serving_forward
     from uncertainty_model_tpu_torch.tools import (
-        ladder_r5, measure_fps, measure_serving, profile_train_step,
-        trace_chained, trace_infer)
+        analyze_trace, ladder_r5, measure_fps, measure_serving,
+        profile_train_step, trace_chained, trace_infer)
 
     out = {}
     tmp = tempfile.TemporaryDirectory()
@@ -4948,6 +5196,8 @@ def run_measurement_tools(model, card):
         del traced
         torch.cuda.empty_cache()
     infer = trace_infer.run(BENCH_BATCH, os.path.join(tmp.name, "infer"))
+    PROFILED_WINDOWS.append(("trace_infer", len(analyze_trace.launch_records(
+        analyze_trace.load_events(os.path.join(tmp.name, "infer"))))))
     out["trace_infer"] = {k: infer[k] for k in ("by_scope", "busy_ms",
                                                 "joins", "unattributed")}
     tmp.cleanup()
@@ -4988,6 +5238,31 @@ def check_no_lost_speed(bench_line, scope_cost):
              f"scopes cost {scope_cost * 100:.3f}%")
     return {"bench_fps": bench_line["value"], "floor": floor,
             "scope_cost": scope_cost}
+
+
+def late_trace(early):
+    """Phase 4c: ``trace_chained`` of the bench's forward, as phase 3a's
+    first trace, in this process after phase 4: every launch with its
+    device record, K1 once a pass in each of dec2-dec4, the scopes
+    ``ATTRIBUTED_SHARE`` of the busy time, and the busy time within
+    ``LATE_BUSY_RTOL`` of phase 3a's (``early``)."""
+    from uncertainty_model_tpu_torch.tools import trace_chained
+
+    with tempfile.TemporaryDirectory() as tmp:
+        traced = trace_chained.run(BENCH_BATCH, tmp, TRACE_K, smax="nomax",
+                                   verbose=False)
+        checked = check_trace("late bench", traced, "assemble_z",
+                              {"dec2": 1, "dec3": 1, "dec4": 1})
+    rel = checked["busy_ms"] / early["busy_ms"] - 1
+    log(f"  late bench: busy {checked['busy_ms']:.3f} ms a pass, phase 3a's "
+        f"{early['busy_ms']:.3f} ({rel * 100:+.2f}%, limit "
+        f"{LATE_BUSY_RTOL * 100:g}%) at {time.perf_counter() - START:.0f} s "
+        f"into the run")
+    if not abs(rel) <= LATE_BUSY_RTOL:
+        fail(f"the late trace's busy time is {rel * 100:+.2f}% from phase "
+             "3a's")
+    return {**checked, "busy_rel_vs_phase_3a": rel,
+            "seconds_into_run": time.perf_counter() - START}
 
 
 def per_step(rows, key):
@@ -5169,6 +5444,12 @@ def main() -> int:
             "need 2 or more")
     torch.cuda.empty_cache()
 
+    phase("3j: reconstruct_pyramid and the launch scripts")
+    recon = check_reconstruct_pyramid(all_counters)
+    scripts = run_launch_scripts(tree.name, os.path.join(tree.name, "scripts"),
+                                 cli_run)
+    torch.cuda.empty_cache()
+
     phase("4: times")
     fwd = time_forward(forward)
     serving_timer = time_serving_timer(forward, fwd)
@@ -5235,6 +5516,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv_elu_rows = time_conv_elu()
     upsample_rows = time_upsample2x2()
+    torch.cuda.empty_cache()
+
+    phase("4c: a late trace of the bench chain")
+    late = late_trace(tools["bench"]["attribution"])
+    log(f"  profiled windows: {len(PROFILED_WINDOWS)}, every launch with its "
+        f"device record ({sum(n for _, n in PROFILED_WINDOWS)} launches)")
     log(json.dumps({"forward": fwd, "serving_timer": serving_timer,
                     "bench": bench_line, "no_lost_speed": no_lost_speed,
                     "entry": entry_check,
@@ -5285,7 +5572,10 @@ def main() -> int:
                     "cli": cli_run, "loader": loader_time,
                     "fed_step": fed_step,
                     "conv_elu_shapes": conv_elu_rows,
-                    "upsample2x2_sites": upsample_rows}))
+                    "upsample2x2_sites": upsample_rows,
+                    "reconstruct_pyramid": recon,
+                    "launch_scripts": scripts, "late_trace": late,
+                    "profiled_windows": PROFILED_WINDOWS}))
 
     csrc = "uncertainty_model_tpu_torch/csrc/"
     pallas = "uncertainty_model_tpu/ops/pallas/"
@@ -5316,6 +5606,10 @@ def main() -> int:
             "launches_cli_parallel": parallel_cli["launches"][name],
             "launches_s2d_training": s2d_train_launches[name],
             "launches_converted_resume": converted_resume["launches"][name],
+            "launches_reconstruct_pyramid": recon["launches"][name],
+            # each process of the two scripts' one-epoch runs
+            "launches_scripts": [n[name] for run in scripts.values()
+                                 for n in run["launches"]],
             # rank 0's over the dryrun's three legs
             "launches_dryrun": sum(dryrun["ranks"][0][leg]["launches"][name]
                                    for leg in ("tiny", "flagship",

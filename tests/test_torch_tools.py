@@ -19,10 +19,15 @@
 - each tool's function API once with ``device="cpu"`` (and CUDA by
   default: it raises where there is none), ``perf_budget``'s command line
   on ``trace_chained``'s outdir;
+- ``analyze_trace.lost_device_records`` on hand-built card traces: every
+  launch (a runtime or driver kernel launch, a copy, a set, a graph
+  launch) joined to its device record by correlation id; a kernel's or a
+  copy's record missing is found, calls that enqueue nothing are not;
 - the tools import nothing of JAX: the serving tests' scan covers them.
 """
 
 import contextlib
+import json
 import os
 import subprocess
 import sys
@@ -43,7 +48,7 @@ from uncertainty_model_tpu_torch.ops.decoder_fused import assemble_z, gate_z
 from uncertainty_model_tpu_torch.serving import make_serving_forward
 from uncertainty_model_tpu_torch.tools import (
     analyze_trace, ladder_r5, measure_fps, measure_serving, perf_budget,
-    profile_train_step, trace_chained, trace_infer)
+    profile_train_step, profiler_windows, trace_chained, trace_infer)
 from uncertainty_model_tpu_torch.utils import scopes
 
 from test_torch_serving import PORT, _FORBIDDEN, _imports
@@ -168,6 +173,63 @@ def test_device_trace_joins():
     assert result["unattributed"] == {analyze_trace.NO_LAUNCH: 0.001}
     assert abs(result["busy_ms"] - 0.0115) < 1e-12
     assert abs(result["total_ms"] - 0.0115) < 1e-12
+
+
+def _launched_trace():
+    """A card's trace in which every launch has its device record: a
+    runtime and a driver kernel launch, a copy, a set and a graph launch
+    (two kernels under its one correlation id), beside runtime calls that
+    enqueue nothing and a host function."""
+    return [
+        _event("cuda_runtime", "cudaLaunchKernel", 10.0, 2.0, corr=1),
+        _event("kernel", "elementwise_a", 20.0, 5.0, pid=0, tid=7, corr=1),
+        _event("cuda_driver", "cuLaunchKernelEx", 12.0, 2.0, corr=2),
+        _event("kernel", "triton_b", 30.0, 5.0, pid=0, tid=7, corr=2),
+        _event("cuda_runtime", "cudaMemcpyAsync", 14.0, 2.0, corr=3),
+        _event("gpu_memcpy", "Memcpy HtoD (Pageable -> Device)", 40.0, 1.0,
+               pid=0, tid=7, corr=3),
+        _event("cuda_runtime", "cudaMemsetAsync", 16.0, 1.0, corr=4),
+        _event("gpu_memset", "Memset (Device)", 45.0, 1.0, pid=0, tid=7,
+               corr=4),
+        _event("cuda_runtime", "cudaGraphLaunch", 17.0, 3.0, corr=5),
+        _event("kernel", "graph_c", 50.0, 2.0, pid=0, tid=7, corr=5),
+        _event("kernel", "graph_d", 53.0, 2.0, pid=0, tid=7, corr=5),
+        _event("cuda_runtime", "cudaStreamSynchronize", 18.0, 40.0, corr=6),
+        _event("cuda_runtime", "cudaLaunchHostFunc", 19.0, 1.0, corr=7),
+        _event("cuda_runtime", "cudaEventRecord", 19.5, 0.5, corr=8),
+    ]
+
+
+@pytest.mark.parametrize("drop", ["none", "kernel", "memcpy"])
+def test_lost_device_records(drop):
+    """Every launch answered: nothing lost.  A kernel's or a copy's device
+    record missing: that launch, and only it, comes back, from the event
+    list and from a chrome JSON file alike."""
+    events = _launched_trace()
+    cat = {"none": None, "kernel": "kernel", "memcpy": "gpu_memcpy"}[drop]
+    kept = [e for e in events if not (
+        e["cat"] == cat and e["args"]["correlation"] in (1, 3))]
+    assert len(analyze_trace.launch_records(kept)) == 5
+    lost = analyze_trace.lost_device_records(kept)
+    want = {"none": [], "kernel": ["cudaLaunchKernel"],
+            "memcpy": ["cudaMemcpyAsync"]}[drop]
+    assert [e["name"] for e in lost] == want
+
+
+def test_profiler_windows_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiler_windows.run(rounds=1, idle=0, verbose=False)
+
+
+def test_lost_device_records_reads_a_chrome_file(tmp_path):
+    events = _launched_trace()[2:]
+    with open(tmp_path / analyze_trace.TRACE_FILE, "w") as f:
+        json.dump({"traceEvents": events}, f)
+    lost = analyze_trace.lost_device_records(str(tmp_path))
+    assert [e["args"]["correlation"] for e in lost] == []
+    lost = analyze_trace.lost_device_records(events[:1] + events[3:])
+    assert [e["args"]["correlation"] for e in lost] == [2]
 
 
 def _rows(recorder):

@@ -14,7 +14,8 @@ does; inside, tensors are logical NCHW in ``torch.channels_last`` memory, so
 ``x_nhwc.permute(0, 3, 1, 2)`` is a free view.
 """
 
+from . import ops
 from .config import FLAGSHIP_LOSS, FLAGSHIP_MODEL
 from .device import resolve_device
 
-__all__ = ["FLAGSHIP_LOSS", "FLAGSHIP_MODEL", "resolve_device"]
+__all__ = ["FLAGSHIP_LOSS", "FLAGSHIP_MODEL", "ops", "resolve_device"]

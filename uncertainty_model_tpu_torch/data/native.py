@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
+import subprocess
 import zlib
 from concurrent.futures import Executor, ThreadPoolExecutor
 
@@ -52,6 +53,18 @@ def _library() -> ctypes.CDLL:
     lib.umt_resize_rgb8.restype = i32
     lib.umt_resize_rgb8.argtypes = [ptr, i32, i32, i32, i32, ptr]
     return lib
+
+
+def native_available() -> bool:
+    """Whether ``csrc/stereo_decode.cc`` builds and loads here (g++ at
+    first use).  A query only: no path of the port switches to another
+    decoder on it, and ``decode_resize_batch`` raises where the library is
+    missing."""
+    try:
+        _library()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _failed(path: str, reason: str) -> IOError:

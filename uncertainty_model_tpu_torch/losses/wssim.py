@@ -16,6 +16,24 @@ _K1 = 0.01 ** 2
 _K2 = 0.03 ** 2
 
 
+def ssim(x: torch.Tensor, y: torch.Tensor, k1: float = _K1,
+         k2: float = _K2) -> torch.Tensor:
+    """Per-pixel SSIM of NHWC tensors over 3x3 average-pooled statistics,
+    smaller by 2 in H and W (valid pooling, train/loss.py:43-74)."""
+    mu_x, mu_y = avg_pool2d(x, 3), avg_pool2d(y, 3)
+    mu_xx, mu_yy, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
+    sigma_x = avg_pool2d(x * x, 3) - mu_xx
+    sigma_y = avg_pool2d(y * y, 3) - mu_yy
+    sigma_xy = avg_pool2d(x * y, 3) - mu_xy
+    return ((2 * mu_xy + k1) * (2 * sigma_xy + k2)) / (
+        (mu_xx + mu_yy + k1) * (sigma_x + sigma_y + k2))
+
+
+def dssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Structural dissimilarity, clamped to [0, 1] (train/loss.py:76-90)."""
+    return torch.clamp((1 - ssim(x, y)) / 2, 0.0, 1.0)
+
+
 def wssim_image_error(images: torch.Tensor, recon: torch.Tensor,
                       alpha: float = 0.85) -> torch.Tensor:
     """Per-pixel ``alpha * DSSIM + (1 - alpha) * L1`` of (B, H, W, 6) stereo

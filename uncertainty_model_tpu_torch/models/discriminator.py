@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .graph import resolve_stage_graph
+from .encoder import resolve_encoder_graphs
 from .layers import EncoderStage, init_parameters, sigmoid
 
 
@@ -40,10 +40,8 @@ class RandomDiscriminator(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.graphs = tuple(
-            resolve_stage_graph(i + 1, nodes=nodes, seed=seed,
-                                load_graph=load_graph)
-            for i in range(len(layers) + 1))
+        self.graphs = resolve_encoder_graphs(
+            len(layers) + 1, load_graph=load_graph, nodes=nodes, seed=seed)
 
         def stage(graph, cfg):
             return EncoderStage(graph, cfg["in_channels"], cfg["out_channels"],

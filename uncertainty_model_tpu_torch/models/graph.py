@@ -6,12 +6,17 @@ node ``i`` takes its inputs from its neighbours with a smaller index; it is
 an *input* node when its index is below all neighbours and an *output* node
 when above all of them.  The topology is resolved on the host when a model
 is built.
+
+Graphs are read from this package's JSON files or the reference's
+``.gpickle`` files, or built with networkx; networkx is imported only
+where a graph is built or unpickled.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import NamedTuple, Optional, Sequence
 
 # relative ``load_graph`` paths (as in configs/*.yml) resolve against the
@@ -68,35 +73,76 @@ def graph_spec_from_edges(num_nodes: int,
     return graph_spec_from_adjacency(adjacency)
 
 
+def _adjacency(graph) -> list[list[int]]:
+    return [list(graph.neighbors(i)) for i in range(graph.number_of_nodes())]
+
+
+def graph_spec_from_nx(graph) -> GraphSpec:
+    """From a networkx Graph, keeping its adjacency (insertion) order
+    (reference model/graph.py:11-38)."""
+    return graph_spec_from_adjacency(_adjacency(graph))
+
+
+def _watts_strogatz(nodes: int, k: int, p: float, seed: Optional[int]):
+    import networkx as nx
+
+    return nx.connected_watts_strogatz_graph(nodes, k, p, seed=seed)
+
+
+def build_graph_spec(nodes: int, k: int, p: float,
+                     seed: Optional[int] = None) -> GraphSpec:
+    """A connected Watts-Strogatz graph (reference model/graph.py:41-44)."""
+    return graph_spec_from_nx(_watts_strogatz(nodes, k, p, seed))
+
+
 def load_graph_spec(path: str) -> GraphSpec:
-    """Load a graph saved as JSON (``adjacency`` lists or an edge list)."""
-    with open(path) as f:
-        data = json.load(f)
-    if "adjacency" in data:
-        return graph_spec_from_adjacency(data["adjacency"])
-    return graph_spec_from_edges(data["num_nodes"],
-                                 [tuple(e) for e in data["edges"]])
+    """Load a graph saved as ``.json`` (``adjacency`` lists or an edge
+    list) or as the reference's ``.gpickle`` (a pickled networkx Graph,
+    which unpickling imports networkx for).  Both keep each node's
+    neighbour order."""
+    if path.endswith(".json"):
+        with open(path) as f:
+            data = json.load(f)
+        if "adjacency" in data:
+            return graph_spec_from_adjacency(data["adjacency"])
+        return graph_spec_from_edges(data["num_nodes"],
+                                     [tuple(e) for e in data["edges"]])
+    with open(path, "rb") as f:
+        return graph_spec_from_nx(pickle.load(f))
+
+
+def save_graph_spec(adjacency: Sequence[Sequence[int]], path: str) -> None:
+    """Save ordered per-node neighbour lists as JSON (``num_nodes``,
+    ``adjacency``), the file ``load_graph_spec`` reads."""
+    with open(path, "w") as f:
+        json.dump({"num_nodes": len(adjacency),
+                   "adjacency": [list(a) for a in adjacency]}, f)
 
 
 def resolve_stage_graph(stage: int, nodes: int = 5, p: float = 0.75,
                         k: int = 4, seed: Optional[int] = None,
-                        load_graph: Optional[str] = None) -> GraphSpec:
-    """The graph of one encoder stage (stages count from 1).  ``load_graph``
-    is a directory of ``stage_{i}.json`` files; without it the graph is
-    built with networkx from ``seed = stage * seed`` (reference
-    model/layers/encoder.py:237-254)."""
+                        load_graph: Optional[str] = None,
+                        save_graph: Optional[str] = None) -> GraphSpec:
+    """The graph of one encoder stage (stages count from 1), by the policy
+    of reference model/layers/encoder.py:237-254.  ``load_graph`` is a
+    directory holding ``stage_{i}.json`` or ``stage_{i}.gpickle`` (the
+    JSON first); without it the graph is built with networkx from
+    ``seed = stage * seed`` and, where ``save_graph`` names a directory,
+    written to ``<save_graph>/nodes_{nodes}_seed_{seed}/stage_{i}.json``."""
     if load_graph is not None:
         directory = load_graph
         if not os.path.isabs(directory) and not os.path.isdir(directory):
             directory = os.path.join(_REPO_ROOT, directory)
-        path = os.path.join(directory, f"stage_{stage}.json")
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"no stage_{stage} graph under {load_graph}")
-        return load_graph_spec(path)
+        for name in (f"stage_{stage}.json", f"stage_{stage}.gpickle"):
+            path = os.path.join(directory, name)
+            if os.path.exists(path):
+                return load_graph_spec(path)
+        raise FileNotFoundError(f"no stage_{stage} graph under {load_graph}")
 
-    import networkx as nx
-
-    g = nx.connected_watts_strogatz_graph(
-        nodes, k, p, seed=(stage * seed) if seed is not None else None)
-    return graph_spec_from_adjacency(
-        [list(g.neighbors(i)) for i in range(g.number_of_nodes())])
+    g = _watts_strogatz(nodes, k, p, (stage * seed) if seed is not None else None)
+    if save_graph is not None:
+        directory = os.path.join(save_graph, f"nodes_{nodes}_seed_{seed}")
+        os.makedirs(directory, exist_ok=True)
+        save_graph_spec(_adjacency(g),
+                        os.path.join(directory, f"stage_{stage}.json"))
+    return graph_spec_from_nx(g)

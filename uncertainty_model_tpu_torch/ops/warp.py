@@ -108,6 +108,21 @@ def reconstruct_right_image(right_disparity: torch.Tensor,
     return warp_by_disparity(right_disparity, left_image)
 
 
+def reconstruct_stereo(disparity: torch.Tensor,
+                       images: torch.Tensor) -> torch.Tensor:
+    """Both views of a stereo pair (``images[..., :3]`` left, ``[..., 3:6]``
+    right) reconstructed by ``disparity[..., 0]`` (left) and ``[..., 1]``
+    (right), as (..., 6) (reference train/utils.py:112-135)."""
+    return reconstruct_pyramid([disparity], [images])[0]
+
+
+def reconstruct_pyramid(disparities, pyramid) -> list:
+    """:func:`reconstruct_stereo` at every scale: the reconstructions of
+    :func:`reconstruct_pyramid_with_lr` (one ``warp_rows`` launch for all
+    the scales on CUDA; its LR-consistency channel goes unused)."""
+    return reconstruct_pyramid_with_lr(disparities, pyramid)[0]
+
+
 def reconstruct_stereo_with_lr(disparity: torch.Tensor, images: torch.Tensor):
     """Both views of a stereo pair (``images[..., :3]`` left, ``[..., 3:6]``
     right) reconstructed by ``disparity[..., 0]`` (left) and ``[..., 1]``

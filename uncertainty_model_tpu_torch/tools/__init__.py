@@ -15,6 +15,8 @@ the serving forward and the training step), each a module with a
     python -m uncertainty_model_tpu_torch.tools.profile_train_step \\
         [--batch 8] [--precision f32,bf16]
     python -m uncertainty_model_tpu_torch.tools.ladder_r5 [name=spec ...]
+    python -m uncertainty_model_tpu_torch.tools.profiler_windows \
+        [--rounds 5] [--idle 50]
 
 Each runs on CUDA unless given ``--device cpu``, and raises where CUDA is
 asked for and there is none.  Their model is the flagship

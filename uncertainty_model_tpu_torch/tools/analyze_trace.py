@@ -29,6 +29,12 @@ Each device kernel, memcpy and memset goes to the innermost scope
 
 Its operator is the hand kernel's name (``HAND_KERNELS``), else the
 outermost aten operator around its launch, else the kernel's own name.
+The profiler's own ``ProfilerStep#N`` ranges around a schedule's steps
+are no scope.
+
+``lost_device_records`` lists the launches (``launch_records``) that no
+device record answers by its correlation id; every window the tools
+profile fails on one (``trace_chained.profile``).
 
 A trace with no device activity (one taken on the CPU) is attributed by
 the host alone: each aten operator's self time (its duration less its
@@ -50,6 +56,9 @@ import tempfile
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+LAUNCH_NAME = re.compile(r"Launch|Memcpy|Memset")
+# the profiler's own range around each step of a schedule: no scope
+PROFILER_STEP = re.compile(r"ProfilerStep#\d+$")
 OUTSIDE = "(outside)"
 UNATTRIBUTED = "(unattributed)"
 NO_LAUNCH = ("no scope's device range holds it and its launch is not in the "
@@ -75,6 +84,30 @@ def hand_kernel(name: str):
         if pattern.search(name):
             return kernel
     return None
+
+
+def launch_records(events) -> list:
+    """The runtime and driver calls in ``events`` that put work on the
+    device: kernel launches (``cudaLaunchKernel``, ``cuLaunchKernelEx``,
+    ``cudaGraphLaunch``, ...), copies and sets, each with its correlation
+    id.  A host function enqueued on a stream is no device work."""
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS
+            and LAUNCH_NAME.search(e.get("name", ""))
+            and "HostFunc" not in e["name"]
+            and e.get("args", {}).get("correlation") is not None]
+
+
+def lost_device_records(trace) -> list:
+    """The launch records of ``trace`` (a chrome JSON path, a directory
+    holding ``trace.json``, a ``torch.profiler.profile`` or a list of
+    events) that no device record (kernel, memcpy or memset) answers by its
+    correlation id: the work the profiler saw enqueued but not run."""
+    events = trace if isinstance(trace, list) else load_events(trace)
+    ran = {e.get("args", {}).get("correlation") for e in events
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS}
+    return [e for e in launch_records(events)
+            if e["args"]["correlation"] not in ran]
 
 
 def load_events(source) -> list:
@@ -114,10 +147,15 @@ def _enclosing(spans):
         stack.append(s)
 
 
+def _scope_range(e) -> bool:
+    return not PROFILER_STEP.match(e["name"])
+
+
 def _by_thread(events, cats):
     threads = collections.defaultdict(list)
     for e in events:
-        if e.get("ph") == "X" and e.get("cat") in cats:
+        if (e.get("ph") == "X" and e.get("cat") in cats
+                and (e["cat"] != "user_annotation" or _scope_range(e))):
             kind = "scope" if e["cat"] == "user_annotation" else "op"
             threads[(e.get("pid"), e.get("tid"))].append(_Span(e, kind))
     return threads
@@ -173,7 +211,8 @@ def attribute(events, divisor: float = 1.0) -> dict:
 
 def _device_items(events, device):
     ranges = [_Span(e, "scope") for e in events
-              if e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"]
+              if e.get("ph") == "X" and e.get("cat") == "gpu_user_annotation"
+              and _scope_range(e)]
     ranges.sort(key=lambda s: (s.start, -(s.end - s.start)))
     # the host join: the scopes and operators around each launch (a span
     # of no duration, named by its correlation id)

@@ -10,8 +10,9 @@ The flagship's bf16 serving forward at 256x512, batch 128 by default,
 built with the options given (``--decoder direct``: ``fused_stages=()``;
 an option not given keeps the port's default, so ``--smax nomax`` is
 ``bench.py``'s forward and no flag the port's default path): one chain of
-``k`` passes (default 3; ``utils/benchmark.py::chain``) runs as a warm-up,
-then one under ``torch.profiler``.  The outdir receives ``trace.json``
+``k`` passes (default 3; ``utils/benchmark.py::chain``) runs as the
+profiler's warm-up step, then one in its window (``profile``: a launch
+without its device record fails the run).  The outdir receives ``trace.json``
 (the profiler's chrome trace), ``budget.json`` (``perf_budget.Recorder``
 over one pass of the same forward on the same input) and ``card.txt``;
 ``analyze_trace``'s tables follow, every duration divided by ``k``.
@@ -55,34 +56,77 @@ def serving_options(s2d=(), decoder="fused", pipeline=None, elu_fold=None,
     return options
 
 
-def profile(fn, dev: torch.device):
-    """``fn()`` once under ``torch.profiler`` (the device's activity too
-    on CUDA); returns (the profiler, wall seconds).  On CUDA the device is
-    idle for ``PAD_S`` at both ends of the window: the profiler drops
-    device activity whose timestamp, aligned to the host's clock, falls
-    outside its window, and in a process that has run for minutes that
-    alignment is off by milliseconds."""
+class LostDeviceRecords(RuntimeError):
+    """A profiled window whose trace lacks the device record of a launch
+    it holds."""
+
+
+def profile(fn, dev: torch.device, activities=None, warmup=None,
+            trace_path=None):
+    """``fn()`` once in a ``torch.profiler`` window (the CPU's operators,
+    and the device's activity on CUDA; or ``activities``), whose chrome
+    trace is checked by ``analyze_trace.lost_device_records``: every launch
+    in it must have its device record, else ``LostDeviceRecords``.
+    Returns (the profiler, the trace's events, the wall seconds of
+    ``fn()``); the trace is written to ``trace_path`` where one is given.
+
+    The window opens after a warm-up step (a profiler ``schedule``) that
+    runs ``warmup()`` (default ``fn()``) with the tracing already on, and on
+    CUDA the device is idle for ``PAD_S`` at both ends of it.  Without the
+    warm-up step the profiler drops the first device records of a window as
+    outside it, more the longer the process has run (5 at 70 s, 24 at 311 s
+    on an H100: ``profiler_windows``); with the warm-up step but no padding
+    it still dropped records launched within a millisecond of the window's
+    start, whose device timestamps, aligned to the host's clock, fell
+    before it."""
     cuda = dev.type == "cuda"
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if cuda:
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-        torch.cuda.synchronize(dev)
-    with torch.profiler.profile(activities=acts) as prof:
+    if activities is None:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    sync()
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with torch.profiler.profile(activities=activities,
+                                schedule=schedule) as prof:
+        (fn if warmup is None else warmup)()
+        sync()
+        prof.step()
         if cuda:
             time.sleep(PAD_S)
         t0 = time.perf_counter()
         fn()
-        if cuda:
-            torch.cuda.synchronize(dev)
+        sync()
         wall = time.perf_counter() - t0
         if cuda:
             time.sleep(PAD_S)
-    return prof, wall
+        prof.step()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace_path or os.path.join(tmp, analyze_trace.TRACE_FILE)
+        prof.export_chrome_trace(path)
+        events = analyze_trace.load_events(path)
+    launches = analyze_trace.launch_records(events)
+    lost = analyze_trace.lost_device_records(events)
+    device = any(e.get("cat") in analyze_trace.DEVICE_CATS for e in events)
+    if device and not launches:
+        raise LostDeviceRecords("the trace holds device records but no "
+                                "launches to check them against")
+    if lost:
+        names = sorted({e["name"] for e in lost})
+        raise LostDeviceRecords(
+            f"{len(lost)} of {len(launches)} launches in the profiled window "
+            f"have no device record ({', '.join(names)})")
+    return prof, events, wall
 
 
-def write_outdir(outdir, prof, recorder, card_text) -> None:
+def write_outdir(outdir, recorder, card_text) -> None:
+    """``budget.json`` (where a recorder is given) and ``card.txt`` beside
+    the trace ``profile`` wrote."""
     os.makedirs(outdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(outdir, analyze_trace.TRACE_FILE))
     if recorder is not None:
         with open(os.path.join(outdir, BUDGET_FILE), "w") as f:
             json.dump(recorder.to_json(), f)
@@ -104,14 +148,16 @@ def run(batch: int = 128, outdir: str = DEFAULT_OUTDIR, k: int = 3,
     forward = make_serving_forward(eval_model(dev, config), torch.bfloat16, dev,
                                    **serving_options(**options))
     x = torch.full((batch, *image_hw, 3), 0.5, device=dev)
-    chain(forward, x, k)   # warm-up
-    prof, wall = profile(lambda: chain(forward, x, k), dev)
+    os.makedirs(outdir, exist_ok=True)
+    _, events, wall = profile(
+        lambda: chain(forward, x, k), dev,
+        trace_path=os.path.join(outdir, analyze_trace.TRACE_FILE))
     x = x.to(torch.bfloat16)
     with Recorder() as recorder:
         forward(x)
     card_text = card(dev)
-    write_outdir(outdir, prof, recorder, card_text)
-    result = analyze_trace.attribute(analyze_trace.load_events(outdir), k)
+    write_outdir(outdir, recorder, card_text)
+    result = analyze_trace.attribute(events, k)
     if verbose:
         print(f"{card_text}\ntrace and counts in {outdir}; k={k} passes at "
               f"batch {batch}, wall {wall * 1e3:.1f} ms ({wall / k * 1e3:.1f} "

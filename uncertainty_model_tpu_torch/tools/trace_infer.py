@@ -10,8 +10,8 @@ scopes ``enc0``-``enc4`` and its decoder stages in ``dec0``-``dec4``
 (``stage_scopes``: the JAX tool reads flax's module names there);
 ``--serving`` the bf16 serving forward (``make_serving_forward``, the
 port's defaults, ``--s2d`` its encoder stages; its scopes are its own).
-One warm-up call, then ``CALLS`` calls at ``batch`` (default 128) under
-``torch.profiler``; the trace goes to ``outdir/trace.json`` and
+One call as the profiler's warm-up step, then ``CALLS`` calls at ``batch``
+(default 128) in its window (``trace_chained.profile``); the trace goes to ``outdir/trace.json`` and
 ``analyze_trace``'s tables follow, divided by ``CALLS`` (ms a call).
 """
 
@@ -70,15 +70,18 @@ def run(batch: int = 128, outdir: str = DEFAULT_OUTDIR, serving=False,
         handles = stage_scopes(model)
         forward = eval_forward(model, torch.bfloat16)
     x = torch.full((batch, *image_hw, 3), 0.5, device=dev)
+    os.makedirs(outdir, exist_ok=True)
     try:
-        forward(x)   # warm-up
-        prof, _ = profile(lambda: [forward(x) for _ in range(CALLS)], dev)
+        _, events, _ = profile(
+            lambda: [forward(x) for _ in range(CALLS)], dev,
+            warmup=lambda: forward(x),
+            trace_path=os.path.join(outdir, analyze_trace.TRACE_FILE))
     finally:
         for h in handles:
             h.remove()
     card_text = card(dev)
-    write_outdir(outdir, prof, None, card_text)
-    result = analyze_trace.attribute(analyze_trace.load_events(outdir), CALLS)
+    write_outdir(outdir, None, card_text)
+    result = analyze_trace.attribute(events, CALLS)
     if verbose:
         print(f"{card_text}\ntrace in {outdir}; {CALLS} calls at batch "
               f"{batch}, ms a call", flush=True)

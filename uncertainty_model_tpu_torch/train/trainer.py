@@ -320,6 +320,11 @@ class Trainer:
         return averages
 
     def _profiler(self, profile_dir: str) -> torch.profiler.profile:
+        """The CLI's ``--profile-dir`` trace of an epoch, written for
+        TensorBoard.  It is no measurement and is not checked: unlike the
+        measurement tools' windows (``tools/trace_chained.py::profile``) it
+        opens without a warm-up step, so its first device records may be
+        missing."""
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
