@@ -41,7 +41,9 @@ result is the same tensor.
 The forward runs each encoder stage in ``utils/scopes.py::scope(f"enc{i}")``
 and each decoder stage in ``scope(f"dec{i}")``, the JAX package's
 ``jax.named_scope`` names; an s2d stage's ``depth_to_space`` runs outside
-its scope, as there.
+its scope, as there.  The whole call is the span recorder's ``serve``
+(``utils/scopes.py::span``: no profiler range, so the stages' paths stay
+``enc0``-``dec4``).
 
 Softmaxes subtract their max and sum in f32 by default (``smax="window"``;
 the JAX package's default, "nomax", drops the max: the two are equal in
@@ -67,7 +69,7 @@ from .ops.decoder_fused import assemble, assemble_z, gate_z, se_squeeze
 from .ops.s2d import (block_diag_1x1_kernel, depth_to_space, s2d_bias,
                       s2d_conv_kernel, s2d_in_stride2_conv_kernel,
                       s2d_out_stride2_conv_kernel, space_to_depth)
-from .utils.scopes import scope
+from .utils.scopes import scope, span
 
 FUSED_STAGES = (2, 3, 4)
 FOLD_MAX_CHANNELS = 8
@@ -512,6 +514,10 @@ def make_serving_forward(model, dtype=torch.bfloat16, device=None, *,
 
     @torch.no_grad()
     def forward(x_nhwc, disp_scale=1.0):
+        with span("serve"):
+            return _forward(x_nhwc, disp_scale)
+
+    def _forward(x_nhwc, disp_scale):
         x = nchw(x_nhwc.to(device=dev, dtype=dtype).contiguous())
         feats, h = [], x
         for i, (spec, prm) in enumerate(zip(enc_specs, params["encoder"])):

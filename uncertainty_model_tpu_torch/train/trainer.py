@@ -44,11 +44,21 @@ and ``state_dict`` keys are the serial run's.  The clone is not wrapped:
 it copies the live discriminator's parameters, which DDP keeps equal on
 every rank.  Each step's losses are the global batch's means on every
 rank.
+
+Each step runs in ``utils/scopes.py::scope("train.step")``, partitioned by
+``train.forward`` (the inputs to the device, the pyramid, ``zero_grad``,
+the model's forward), ``train.loss`` (the layout change, the warps, the
+composite loss), ``train.backward`` and ``train.adam`` (the learning rate
+and ``optimizer.step``), with ``train.disc`` (the discriminator's step)
+and ``train.reduce`` (the losses' all-reduce) where they run; an epoch
+waits for each batch in ``train.load``.  They are profiler ranges (the
+CLI's ``--profile-dir`` trace shows them) and the span recorder's.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import math
 import time
 import warnings
@@ -62,6 +72,7 @@ from ..losses import TukraUncertaintyLoss, discriminator_loss
 from ..ops import reconstruct_pyramid_with_lr, scale_pyramid
 from ..utils.progress import progress_bar
 from ..utils.schedules import adjust_disparity, learning_rate_for_epoch
+from ..utils.scopes import scope
 from .checkpoint import save_checkpoint
 from .evaluate import evaluate_model
 
@@ -199,37 +210,52 @@ class Trainer:
         at twice the batch, so its BatchNorm statistics move once), its
         backward and Adam step; then, every ``perceptual_update_freq``
         batches, the clone takes the updated parameters."""
-        left, right = self._input(batch["left"]), self._input(batch["right"])
-        image_pyramid = scale_pyramid(torch.cat([left, right], dim=-1),
-                                      self.scales)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        model = self.model if self.ddp_model is None else self.ddp_model
-        disparities = model(left.permute(0, 3, 1, 2), disp_scale=disp_scale)
-        # the losses in f32, NHWC
-        disparities = [d.permute(0, 2, 3, 1).float() for d in disparities]
-        recon_pyramid, lr_pyramid = reconstruct_pyramid_with_lr(
-            disparities, image_pyramid)
-        lag = self.disc_lag
-        if lag is not None:
-            lag.train()
-        disp_loss, error_loss = self.loss(
-            image_pyramid, disparities, recon_pyramid, step=step_idx,
-            lr_pyramid=lr_pyramid, disc_apply=lag,
-            disc_features=None if lag is None else lag.features)
-        (disp_loss + error_loss).backward()
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        metrics = {"disp_loss": disp_loss.detach(),
-                   "error_loss": error_loss.detach()}
-        if self.disc is not None:
-            metrics["disc_loss"] = self._disc_step(
-                image_pyramid, recon_pyramid, lr, step_idx)
-        if self.group is not None:  # the global batch's means
-            metrics = dict(zip(metrics, parallel.all_reduce_mean(
-                torch.stack(list(metrics.values())))))
-        return metrics
+        with scope("train.step"):
+            with scope("train.forward"):
+                left = self._input(batch["left"])
+                right = self._input(batch["right"])
+                image_pyramid = scale_pyramid(torch.cat([left, right], dim=-1),
+                                              self.scales)
+                self.model.train()
+                self.optimizer.zero_grad(set_to_none=True)
+                model = (self.model if self.ddp_model is None
+                         else self.ddp_model)
+                disparities = model(left.permute(0, 3, 1, 2),
+                                    disp_scale=disp_scale)
+            with scope("train.loss"):
+                # the losses in f32, NHWC
+                disparities = [d.permute(0, 2, 3, 1).float()
+                               for d in disparities]
+                recon_pyramid, lr_pyramid = reconstruct_pyramid_with_lr(
+                    disparities, image_pyramid)
+                lag = self.disc_lag
+                if lag is not None:
+                    lag.train()
+                disp_loss, error_loss = self.loss(
+                    image_pyramid, disparities, recon_pyramid, step=step_idx,
+                    lr_pyramid=lr_pyramid, disc_apply=lag,
+                    disc_features=None if lag is None else lag.features)
+                metrics = {"disp_loss": disp_loss.detach(),
+                           "error_loss": error_loss.detach()}
+            with scope("train.backward"):
+                (disp_loss + error_loss).backward()
+                # the autograd graph goes here, not when the step returns
+                # (the discriminator reads the reconstructions detached)
+                recon_pyramid = [r.detach() for r in recon_pyramid]
+                del disparities, lr_pyramid, disp_loss, error_loss
+            with scope("train.adam"):
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+            if self.disc is not None:
+                with scope("train.disc"):
+                    metrics["disc_loss"] = self._disc_step(
+                        image_pyramid, recon_pyramid, lr, step_idx)
+            if self.group is not None:  # the global batch's means
+                with scope("train.reduce"):
+                    metrics = dict(zip(metrics, parallel.all_reduce_mean(
+                        torch.stack(list(metrics.values())))))
+            return metrics
 
     def _disc_step(self, image_pyramid, recon_pyramid, lr: float,
                    step_idx: int) -> torch.Tensor:
@@ -300,7 +326,12 @@ class Trainer:
         if log_every:
             drain_every = math.gcd(drain_every, log_every)
 
-        for i, batch in enumerate(loader if tepoch is None else tepoch):
+        batches = iter(loader if tepoch is None else tepoch)
+        for i in itertools.count():
+            with scope("train.load"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             pending.append(self.train_step(batch, disp_scale, lr, i))
             n_images += len(batch["left"])
             if (i + 1) % drain_every != 0:
