@@ -397,6 +397,11 @@ UPSAMPLE_SITES = (
     ("dec1_skip", 16, 32, 256),
 )
 
+# reflect_pad is timed at the flagship's decoder reflect conv inputs
+# (serving.reflect_conv_inputs) at serve-b128's batch; a serving forward
+# launches it once for each of them, a training step never
+REFLECT_PAD_BATCH = 128
+
 # the flagship's stages that run the glue only under other build options
 # (name, H, W, Cso, Cu, Cd, cf): dec0 and dec1 under fused_stages=(0, ...,
 # 4), with no disparity to concat; dec4 under dec_fold=False (cf 0)
@@ -407,23 +412,28 @@ OPTION_GLUE_STAGES = (
 )
 TIMED_OPTION_GLUE_STAGES = OPTION_GLUE_STAGES[:2]
 
+# the flagship's decoder reflect convs (upsample and iconv of dec0-dec4,
+# disp of dec1-dec4): every serving forward launches reflect_pad for each
+REFLECT_CONVS = 14
+
 # the serving forward's other build options, and the launches a forward
 # must make (every other serving kernel: 0)
 ALL_FUSED = (0, 1, 2, 3, 4)
+RP = {"reflect_pad": REFLECT_CONVS}
 OPTION_PATHS = {
-    "fused_0-4": ({"fused_stages": ALL_FUSED}, {"assemble_z": 5}),
+    "fused_0-4": ({"fused_stages": ALL_FUSED}, {"assemble_z": 5, **RP}),
     "fused_0-4_gate_z": ({"fused_stages": ALL_FUSED, "dec_pipeline": "gate_z"},
-                         {"assemble_z": 5, "gate_z": 5}),
+                         {"assemble_z": 5, "gate_z": 5, **RP}),
     "fused_0-4_squeeze_first": (
         {"fused_stages": ALL_FUSED, "dec_pipeline": "squeeze_first"},
-        {"se_squeeze": 5, "assemble": 5}),
-    "fused_1-4": ({"fused_stages": (1, 2, 3, 4)}, {"assemble_z": 4}),
-    "fused_none": ({"fused_stages": ()}, {}),
-    "dec_fold_off": ({"dec_fold": False}, {"assemble_z": 3}),
-    "smax_nomax": ({"smax": "nomax"}, {"assemble_z": 3}),
-    "smax_slice": ({"smax": "slice"}, {"assemble_z": 3}),
+        {"se_squeeze": 5, "assemble": 5, **RP}),
+    "fused_1-4": ({"fused_stages": (1, 2, 3, 4)}, {"assemble_z": 4, **RP}),
+    "fused_none": ({"fused_stages": ()}, {**RP}),
+    "dec_fold_off": ({"dec_fold": False}, {"assemble_z": 3, **RP}),
+    "smax_nomax": ({"smax": "nomax"}, {"assemble_z": 3, **RP}),
+    "smax_slice": ({"smax": "slice"}, {"assemble_z": 3, **RP}),
     "s2d_fused_0-4": ({"s2d_stages": (0, 1), "fused_stages": ALL_FUSED},
-                      {"gated_conv_elu": 8, "assemble_z": 5}),
+                      {"gated_conv_elu": 8, "assemble_z": 5, **RP}),
 }
 TIMED_OPTION_PATHS = ("fused_0-4", "fused_none", "smax_nomax")
 
@@ -436,11 +446,12 @@ S2D_STATS_TOL = dict(rtol=2e-4, atol=1e-6)
 # the JAX package's default encoder with each decoder pipeline, and the
 # launches a forward must make (every other serving kernel: 0)
 S2D_PATHS = {
-    "a": ({"s2d_stages": (0, 1)}, {"gated_conv_elu": 8, "assemble_z": 3}),
+    "a": ({"s2d_stages": (0, 1)},
+          {"gated_conv_elu": 8, "assemble_z": 3, **RP}),
     "b": ({"s2d_stages": (0, 1), "dec_pipeline": "gate_z"},
-          {"gated_conv_elu": 8, "assemble_z": 3, "gate_z": 3}),
+          {"gated_conv_elu": 8, "assemble_z": 3, "gate_z": 3, **RP}),
     "c": ({"s2d_stages": (0, 1), "dec_pipeline": "squeeze_first"},
-          {"gated_conv_elu": 8, "se_squeeze": 3, "assemble": 3}),
+          {"gated_conv_elu": 8, "se_squeeze": 3, "assemble": 3, **RP}),
 }
 
 
@@ -881,6 +892,55 @@ def check_upsample2x2():
     return worst
 
 
+def reflect_pad_sites():
+    """``serving.reflect_conv_inputs`` of the flagship at 256x512:
+    ``(name, (H, W, C), C_out, gated)`` for each decoder reflect conv."""
+    from uncertainty_model_tpu_torch.config import (FLAGSHIP_INPUT,
+                                                    FLAGSHIP_MODEL)
+    from uncertainty_model_tpu_torch.serving import reflect_conv_inputs
+
+    return reflect_conv_inputs(FLAGSHIP_MODEL["decoder"]["layers"],
+                               FLAGSHIP_INPUT)
+
+
+def reflect_pad_operands(seed, batch, hwc, gated, dtype):
+    """A normal NHWC input of ``hwc`` and, where ``gated``, a (B, C)
+    scale in [0, 1), as the SE gates are."""
+    rng = card_rng(seed)
+    scale = (torch.rand((batch, hwc[-1]), generator=rng, device="cuda").to(
+        dtype) if gated else None)
+    return normal(rng, batch, *hwc, dtype=dtype), scale
+
+
+def check_reflect_pad():
+    """``reflect_pad`` against its plain version at every decoder reflect
+    conv input at batch ``SMOKE_BATCH``, bf16 and f32, with the scale where
+    the site takes one: bit for bit.  Returns the worst abs error (0)."""
+    from uncertainty_model_tpu_torch.ops.pad import (
+        reflect_pad, reflect_pad_plain)
+
+    worst = 0.0
+    for i, (name, hwc, _, gated) in enumerate(reflect_pad_sites()):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, scale = reflect_pad_operands(SEED + 70 + i, SMOKE_BATCH, hwc,
+                                            gated, dtype)
+            out = reflect_pad(x, scale)
+            torch.cuda.synchronize()
+            ref = reflect_pad_plain(x, scale)
+            err = (out.float() - ref.float()).abs().max().item()
+            same = torch.equal(out, ref)
+            log(f"  reflect_pad {name}{' gated' if gated else ''} "
+                f"{str(dtype)[6:]:8s} {tuple(x.shape)} -> {tuple(out.shape)}:"
+                f" max|err|={err:.3g} bit for bit {same}")
+            if not same:
+                fail(f"reflect_pad kernel disagrees with its plain version "
+                     f"at {name} {dtype}")
+            worst = max(worst, err)
+            del x, scale, out, ref
+    torch.cuda.empty_cache()
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -948,10 +1008,10 @@ def run_main_path(model, counters):
         fail(f"output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all():
         fail("non-finite output")
-    if launches["assemble_z"] != 3:
-        fail(f"assemble_z launched {launches['assemble_z']} times, not 3")
-    if any(n for name, n in launches.items() if name != "assemble_z"):
-        fail(f"the bench path launched other kernels: {launches}")
+    want = {**dict.fromkeys(launches, 0), "assemble_z": 3,
+            "reflect_pad": REFLECT_CONVS}
+    if launches != want:
+        fail(f"the bench path launched {launches}, not {want}")
     err_bf16 = (out.float() - ref).abs().max().item()
     log(f"  bf16 serving vs f32 eval model: max abs {err_bf16:.4g} "
         f"(limit {BF16_VS_F32_EVAL})")
@@ -3527,6 +3587,7 @@ def parallel_cli_rank(rank, world, address, home, out, result_path):
     from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble, assemble_z, gate_z, se_squeeze)
+    from uncertainty_model_tpu_torch.ops.pad import reflect_pad
     from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
     from uncertainty_model_tpu_torch.ops.warp_rows import (
         warp_rows_bwd, warp_rows_fwd)
@@ -3534,7 +3595,8 @@ def parallel_cli_rank(rank, world, address, home, out, result_path):
     counters = {"assemble_z": assemble_z, "gate_z": gate_z,
                 "se_squeeze": se_squeeze, "assemble": assemble,
                 "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
-                "upsample2x2": upsample2x2, "warp_rows_fwd": warp_rows_fwd,
+                "upsample2x2": upsample2x2, "reflect_pad": reflect_pad,
+                "warp_rows_fwd": warp_rows_fwd,
                 "warp_rows_bwd": warp_rows_bwd}
     torch.backends.cudnn.allow_tf32 = True   # PyTorch's default
     args, _, run, launches, steps, evals = run_cli(counters, cli_argv(
@@ -3664,6 +3726,7 @@ sys.path.insert(0, os.getcwd())
 from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
 from uncertainty_model_tpu_torch.ops.decoder_fused import (
     assemble, assemble_z, gate_z, se_squeeze)
+from uncertainty_model_tpu_torch.ops.pad import reflect_pad
 from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
 from uncertainty_model_tpu_torch.ops.warp_rows import warp_rows_bwd, warp_rows_fwd
 from uncertainty_model_tpu_torch.train import evaluate, trainer
@@ -3671,7 +3734,8 @@ from uncertainty_model_tpu_torch.train import evaluate, trainer
 counters = {"assemble_z": assemble_z, "gate_z": gate_z,
             "se_squeeze": se_squeeze, "assemble": assemble,
             "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
-            "upsample2x2": upsample2x2, "warp_rows_fwd": warp_rows_fwd,
+            "upsample2x2": upsample2x2, "reflect_pad": reflect_pad,
+            "warp_rows_fwd": warp_rows_fwd,
             "warp_rows_bwd": warp_rows_bwd}
 record = {"argv": sys.argv[3:], "steps": [], "evals": []}
 
@@ -4898,6 +4962,62 @@ def time_conv_elu():
     return rows
 
 
+def time_reflect_pad():
+    """``reflect_pad`` at the decoder's reflect conv inputs
+    (``reflect_pad_sites``) at batch ``REFLECT_PAD_BATCH`` in bf16 (gated
+    where the site is): the kernel, the plain version and, timed only,
+    ``F.pad(mode="reflect")`` on the channels-last NCHW view (the reflect
+    alone: no gates, no zero channels); device time per call
+    (``time_graph_ms``), input sets rotating so that about 200 MB pass per
+    sample."""
+    import torch.nn.functional as F
+
+    from uncertainty_model_tpu_torch.ops.pad import (
+        padded_channels, reflect_pad, reflect_pad_plain)
+
+    def library(x, scale):
+        return F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+
+    b = REFLECT_PAD_BATCH
+    rows = []
+    for i, (name, (h, w, c), _, gated) in enumerate(reflect_pad_sites()):
+        nbytes = 2 * (b * h * w * c + b * (h + 2) * (w + 2)
+                      * padded_channels(c) + (b * c if gated else 0))
+        n_sets = max(2, min(16, -(-200_000_000 // nbytes)))
+        sets = [reflect_pad_operands(SEED + 90 + 16 * i + k, b, (h, w, c),
+                                     gated, torch.bfloat16)
+                for k in range(n_sets)]
+        same = torch.equal(reflect_pad(*sets[0]), reflect_pad_plain(*sets[0]))
+        reps = max(n_sets, 8)
+        k_ms, k_spread = time_graph_ms(rotating(reflect_pad, sets), reps)
+        p_ms, p_spread = time_graph_ms(rotating(reflect_pad_plain, sets),
+                                       reps)
+        l_ms, l_spread = time_graph_ms(rotating(library, sets), reps)
+        bound_ms, bound_by = bound(nbytes, 0)
+        rows.append({"site": name, "shape": [b, h, w, c], "gated": gated,
+                     "dtype": "bfloat16", "bytes": nbytes, "ms": k_ms,
+                     "ms_spread": k_spread, "plain_ms": p_ms,
+                     "plain_ms_spread": p_spread, "library_ms": l_ms,
+                     "library_ms_spread": l_spread, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "equals_plain": same})
+        log(f"  reflect_pad {name} ({b}, {h}, {w}, {c})"
+            f"{' gated' if gated else ''}: kernel {k_ms * 1e3:.1f} us "
+            f"(spread {k_spread * 1e3:.1f}, {100 * bound_ms / k_ms:.1f}% of "
+            f"its bound), plain "
+            f"{p_ms * 1e3:.1f} us, F.pad {l_ms * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes / 1e6:.1f} MB);"
+            f" equals plain {same}")
+        if not same:
+            fail(f"reflect_pad disagrees with its plain version at {name}")
+        del sets
+        torch.cuda.empty_cache()
+    log(f"  reflect_pad, all {len(rows)} sites: kernel "
+        f"{sum(r['ms'] for r in rows):.3f} ms, plain "
+        f"{sum(r['plain_ms'] for r in rows):.3f} ms, bound "
+        f"{sum(r['bound_ms'] for r in rows):.3f} ms a b{b} pass")
+    return rows
+
+
 def time_upsample2x2():
     """``upsample2x2`` at the upsample sites at batch ``TIMING_BATCH`` in
     bf16: the kernel, the plain version and ``F.interpolate`` (bilinear,
@@ -5110,12 +5230,24 @@ def check_trace(label, traced, kernel, want):
             "wall_ms": traced["wall_ms"]}
 
 
+def zero_channel_flops(batch):
+    """2 x the MACs of the decoder's reflect convs at ``batch`` on the
+    zero channels of ``reflect_pad``'s output: the serving forward runs
+    them, and ``FlopCounterMode`` counts them, but they are none of the
+    model's, and the budget's recorder leaves them out."""
+    from uncertainty_model_tpu_torch.ops.pad import padded_channels
+
+    return sum(2 * batch * h * w * 9 * (padded_channels(c) - c) * c_out
+               for _, (h, w, c), c_out, _ in reflect_pad_sites())
+
+
 def check_budget(label, traced, card):
     """``perf_budget``'s table of a ``trace_chained`` run (printed): no
     scope's floor above ``FLOOR_SLACK`` times its measured ms, and its
     FLOPs equal to ``FlopCounterMode``'s count of one pass of the same
-    forward on the same input, the hand kernels' FLOPs added, within
-    ``FLOP_RTOL``."""
+    forward on the same input, less the zero channels' FLOPs
+    (``zero_channel_flops``) and with the hand kernels' FLOPs added,
+    within ``FLOP_RTOL``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from uncertainty_model_tpu_torch.tools import perf_budget
@@ -5130,11 +5262,13 @@ def check_budget(label, traced, card):
     hand = sum(f for (_, name), (_, _, f) in rows.items() if name in kernels)
     with FlopCounterMode(display=False) as counter:
         traced["forward"](traced["input"])
-    want = counter.get_total_flops() + hand
+    zeros = zero_channel_flops(traced["input"].shape[0])
+    want = counter.get_total_flops() - zeros + hand
     got = result["total"]["gflop"] * 1e9
     log(f"  {label}: {got / 1e9:.3f} GFLOP counted, FlopCounterMode "
-        f"{counter.get_total_flops() / 1e9:.3f} + the hand kernels' "
-        f"{hand / 1e9:.3f} (rtol {FLOP_RTOL})")
+        f"{counter.get_total_flops() / 1e9:.3f} - the zero channels' "
+        f"{zeros / 1e9:.3f} + the hand kernels' {hand / 1e9:.3f} (rtol "
+        f"{FLOP_RTOL})")
     if not abs(got - want) <= FLOP_RTOL * want:
         fail(f"{label}: the budget's FLOPs {got} are not FlopCounterMode's "
              f"{want}")
@@ -5315,6 +5449,7 @@ def main() -> int:
     from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble, assemble_z, gate_z, se_squeeze)
+    from uncertainty_model_tpu_torch.ops.pad import reflect_pad
     from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
     from uncertainty_model_tpu_torch.ops.warp_rows import (
         warp_rows_bwd, warp_rows_fwd)
@@ -5325,7 +5460,8 @@ def main() -> int:
     serving_counters = {"assemble_z": assemble_z, "gate_z": gate_z,
                         "se_squeeze": se_squeeze, "assemble": assemble,
                         "gated_conv_elu": gated_conv_elu,
-                        "conv_elu": conv_elu, "upsample2x2": upsample2x2}
+                        "conv_elu": conv_elu, "upsample2x2": upsample2x2,
+                        "reflect_pad": reflect_pad}
     train_counters = {"warp_rows_fwd": warp_rows_fwd,
                       "warp_rows_bwd": warp_rows_bwd}
     card = card_line()
@@ -5340,7 +5476,8 @@ def main() -> int:
 
     phase("1: build")
     build_kernels(["assemble_z", "decoder_fused", "gated_conv_elu",
-                   "warp_rows", "upsample2x2", "stereo_decode"])
+                   "warp_rows", "upsample2x2", "reflect_pad",
+                   "stereo_decode"])
 
     phase("2: kernels vs plain versions")
     worst = check_assemble_z()
@@ -5349,6 +5486,7 @@ def main() -> int:
     warp_worst = check_warp_rows()
     conv_elu_worst = check_conv_elu()
     upsample_worst = check_upsample2x2()
+    reflect_pad_worst = check_reflect_pad()
 
     phase("3: serving paths")
     model = flagship_model()
@@ -5516,6 +5654,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv_elu_rows = time_conv_elu()
     upsample_rows = time_upsample2x2()
+    reflect_pad_rows = time_reflect_pad()
     torch.cuda.empty_cache()
 
     phase("4c: a late trace of the bench chain")
@@ -5573,6 +5712,7 @@ def main() -> int:
                     "fed_step": fed_step,
                     "conv_elu_shapes": conv_elu_rows,
                     "upsample2x2_sites": upsample_rows,
+                    "reflect_pad_sites": reflect_pad_rows,
                     "reconstruct_pyramid": recon,
                     "launch_scripts": scripts, "late_trace": late,
                     "profiled_windows": PROFILED_WINDOWS}))
@@ -5650,6 +5790,21 @@ def main() -> int:
         pallas + "upsample.py:109", launches["upsample2x2"], upsample_worst,
         library=True,
         unit=f"one call at each 2x upsample site, batch {TIMING_BATCH}, bf16"))
+    # reflect_pad: launches in every serving path's forward (14 each), none
+    # in the training and evaluation runs; the times sum one call at each
+    # decoder reflect conv input
+    entry = with_options(summed(
+        reflect_pad_rows, "reflect_pad", csrc + "reflect_pad.cu",
+        "no TPU kernel: the port's index gather (ops/pad.py::reflect_pad2d)",
+        launches["reflect_pad"], reflect_pad_worst, library=True,
+        unit=f"one call at each decoder reflect conv input, batch "
+             f"{REFLECT_PAD_BATCH}, bf16"), option_launches)
+    entry["launches_s2d"] = sum(counts["reflect_pad"]
+                                for counts in s2d_launches.values())
+    entry["launches_bench_forward"] = bench_check["launches"]["reflect_pad"]
+    entry["launches_training_bf16"] = bf16_launches["reflect_pad"]
+    entry["launches_evaluation"] = eval_launches["reflect_pad"]
+    kernels.append(entry)
     phase("5: the kernels line")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -580,3 +580,113 @@ def test_upsample2x2_kernel_rejects_bad_operands():
         tup.upsample2x2(x.transpose(1, 2))
     with pytest.raises(TypeError):
         tup.upsample2x2(x.double())
+
+
+# ---------------------------------------------------------------------------
+# reflect_pad
+
+def _reflect_pad_cases():
+    """(B, H, W, C) by name: every input of the flagship's decoder reflect
+    convs at 256x512 and b2 (``serving.reflect_conv_inputs``: upsample of
+    dec0-dec4; iconv, whose concat widths 164, 84 and 44 in dec2-dec4 are
+    not multiples of 8; disp of dec1-dec4), and 1x1, 1x2 and 2x3 maps,
+    where numpy's rule repeats or reflects an index more than once."""
+    from uncertainty_model_tpu_torch.config import (FLAGSHIP_INPUT,
+                                                    FLAGSHIP_MODEL)
+    from uncertainty_model_tpu_torch.serving import reflect_conv_inputs
+
+    cases = {name: (2, *hwc) for name, hwc, _, _ in reflect_conv_inputs(
+        FLAGSHIP_MODEL["decoder"]["layers"], FLAGSHIP_INPUT)}
+    return {**cases, "map_1x1": (3, 1, 1, 5), "map_1x2": (2, 1, 2, 16),
+            "map_2x3": (2, 2, 3, 3)}
+
+
+REFLECT_PAD_CASES = _reflect_pad_cases()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "scaled"])
+@pytest.mark.parametrize("case", sorted(REFLECT_PAD_CASES))
+def test_reflect_pad_kernel_matches_plain(case, scaled, dtype):
+    """The gather, the product rounded once and the zero channels: bit for
+    bit in f32 and bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import pad as tpad
+
+    dt = getattr(torch, dtype)
+    shape = REFLECT_PAD_CASES[case]
+    rng = np.random.default_rng(29)
+
+    def t(*s):
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+            "cuda", dt)
+
+    x = t(*shape)
+    scale = t(shape[0], shape[-1]) if scaled else None
+    before = tpad.reflect_pad.launches
+    got = tpad.reflect_pad(x, scale)
+    torch.cuda.synchronize()
+    assert tpad.reflect_pad.launches == before + 1
+    assert got.shape[-1] == tpad.padded_channels(shape[-1])
+    torch.testing.assert_close(got, tpad.reflect_pad_plain(x, scale), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.gpu
+def test_reflect_pad_launches_in_serving_not_training():
+    """14 launches in one flagship serving forward (upsample and iconv of
+    dec0-dec4, disp of dec1-dec4), none in a training step, whose
+    ``reflect_conv`` keeps the gather."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.config import (
+        FLAGSHIP_INPUT, FLAGSHIP_LOSS, FLAGSHIP_MODEL)
+    from uncertainty_model_tpu_torch.models import RandomlyConnectedModel
+    from uncertainty_model_tpu_torch.ops import pad as tpad
+    from uncertainty_model_tpu_torch.serving import (make_serving_forward,
+                                                      reflect_conv_inputs)
+    from uncertainty_model_tpu_torch.train import Trainer
+
+    model = RandomlyConnectedModel.from_config(**FLAGSHIP_MODEL, seed=0,
+                                               device="cuda")
+    rng = np.random.default_rng(30)
+
+    def images(b):
+        return torch.from_numpy(rng.uniform(size=(b, *FLAGSHIP_INPUT, 3))
+                                .astype(np.float32)).to("cuda")
+
+    forward = make_serving_forward(model.eval(), torch.bfloat16, "cuda")
+    before = tpad.reflect_pad.launches
+    forward(images(1))
+    torch.cuda.synchronize()
+    assert tpad.reflect_pad.launches == before + len(
+        reflect_conv_inputs(FLAGSHIP_MODEL["decoder"]["layers"],
+                            FLAGSHIP_INPUT)) == before + 14
+    del forward
+    trainer = Trainer(model.train(), FLAGSHIP_LOSS, device="cuda")
+    before = tpad.reflect_pad.launches
+    trainer.train_step({"left": images(2), "right": images(2)}, 0.3, 1e-4)
+    torch.cuda.synchronize()
+    assert tpad.reflect_pad.launches == before
+
+
+@pytest.mark.gpu
+def test_reflect_pad_kernel_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import pad as tpad
+
+    x = torch.zeros(2, 4, 6, 12, device="cuda", dtype=torch.bfloat16)
+    before = tpad.reflect_pad.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        tpad.reflect_pad(x.transpose(1, 2))
+    with pytest.raises(TypeError):
+        tpad.reflect_pad(x.double())
+    with pytest.raises(ValueError, match="scale"):
+        tpad.reflect_pad(x, torch.ones(2, 6, device="cuda",
+                                       dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="scale"):
+        tpad.reflect_pad(x, torch.ones(2, 12, device="cuda"))
+    assert tpad.reflect_pad.launches == before

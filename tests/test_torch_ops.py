@@ -6,6 +6,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -28,6 +29,7 @@ from uncertainty_model_tpu_torch.models.graph import (
 from uncertainty_model_tpu_torch.ops import (
     avg_pool2d, global_avg_pool, pad2d, pixel_shuffle, reflect_pad2d,
     resize_bilinear, scale_pyramid, shuffle_phase_major)
+from uncertainty_model_tpu_torch.ops.pad import reflect_pad, reflect_pad_plain
 from uncertainty_model_tpu_torch.ops.resize import _lerp_coeffs, lerp_taps
 
 
@@ -95,17 +97,49 @@ def test_shuffle_phase_major_matches_jax():
         got, np.asarray(jax_shuffle_phase_major(jnp.asarray(x))))
 
 
-@pytest.mark.parametrize("shape,padding", [
+REFLECT_CASES = [
     ((2, 5, 7, 3), (1, 1, 1, 1)),
     ((2, 1, 2, 3), (1, 1, 1, 1)),   # size-1 H: torch's reflect pad raises
     ((1, 3, 4, 2), (2, 1, 0, 2)),   # asymmetric
     ((1, 2, 3, 2), (3, 3, 2, 2)),   # pad wider than the dim: numpy's rule
-])
+]
+
+
+@pytest.mark.parametrize("shape,padding", REFLECT_CASES)
 def test_reflect_pad_matches_jax(shape, padding):
     x = _normal(4, shape)
     got = reflect_pad2d(torch.from_numpy(x), padding).numpy()
     want = np.asarray(jax_pad2d(jnp.asarray(x), padding, mode="reflect"))
     np.testing.assert_array_equal(got, want)
+
+
+# reflect_pad at test_reflect_pad_matches_jax's shapes, and a channel count
+# that is already a multiple of 8 (no zero channels)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scaled", [False, True], ids=["plain", "scaled"])
+@pytest.mark.parametrize("shape", [s for s, _ in REFLECT_CASES]
+                         + [(2, 3, 4, 8)])
+def test_reflect_pad_plain_is_gather_product_zero_channels(shape, scaled,
+                                                           dtype):
+    """The plain version (the CPU's path through ``reflect_pad``) is the
+    gather, then the product in ``x``'s type, then zero channels up to a
+    multiple of 8, exactly; the CPU launches no kernel."""
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_normal(5, shape)).to(dt)
+    scale = (torch.from_numpy(_normal(6, (shape[0], shape[-1]))).to(dt)
+             if scaled else None)
+    want = reflect_pad2d(x, (1, 1, 1, 1))
+    if scaled:
+        want = want * scale[:, None, None, :]
+    c = shape[-1]
+    want = F.pad(want, (0, -(-c // 8) * 8 - c))
+    before = reflect_pad.launches
+    for got in (reflect_pad_plain(x, scale), reflect_pad(x, scale)):
+        assert got.dtype == dt and got.shape[-1] % 8 == 0
+        assert torch.equal(got, want)
+    assert reflect_pad.launches == before
+    with pytest.raises(ValueError, match="scale"):
+        reflect_pad(x, torch.ones(shape[0], c + 1, dtype=dt))
 
 
 @pytest.mark.parametrize("stage", [1, 2, 3, 4, 5])

@@ -20,6 +20,7 @@ import yaml
 import jax
 import jax.numpy as jnp
 
+from tiny_config import TINY_INPUT
 from torch_port_helpers import (
     PORT_MODEL, images, models as build_models, port_model, to_nchw,
     to_nhwc_numpy)
@@ -30,7 +31,9 @@ from uncertainty_model_tpu.train.convert import convert_model_state_dict
 from uncertainty_model_tpu_torch.config import FLAGSHIP_MODEL
 from uncertainty_model_tpu_torch.ops import conv as tconv
 from uncertainty_model_tpu_torch.ops import decoder_fused as tdf
-from uncertainty_model_tpu_torch.serving import make_serving_forward
+from uncertainty_model_tpu_torch.ops import pad as tpad
+from uncertainty_model_tpu_torch.serving import (
+    build_serving_params, make_serving_forward, reflect_conv_inputs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "uncertainty_model_tpu_torch")
@@ -59,6 +62,62 @@ def test_f32_matches_jax_serving(models, smax):
         torch.from_numpy(x), disp_scale=0.7)
     assert got.shape == want.shape == (2, 32, 64, 4)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_reflect_conv_weights_carry_zero_channels(models):
+    """Each decoder stage's reflect-padded convs (upsample, iconv, disp)
+    read ``reflect_pad``'s output, so the build pads their input channels
+    with zeros up to ``padded_channels``: here the iconvs of dec1-dec3
+    (concat widths 20, 28 and 22).  The forward still matches the JAX
+    package's at test_f32_matches_jax_serving's tolerance."""
+    jmodel, variables, model = models
+    _, params = build_serving_params(model, torch.float32, "cpu")
+    padded = []
+    for i, (st, prm) in enumerate(zip(model.decoder.layers,
+                                      params["decoder"])):
+        convs = {"upsample": st.upsample[0].layers[0].layers[0],
+                 "iconv": st.iconv.layers[0].layers[0]}
+        if st.calculate_disp:
+            convs["disp"] = st.disp.layers[0]
+        for name, conv in convs.items():
+            ci = conv.weight.shape[1]
+            w = prm[name][0]
+            assert w.shape[1] == tpad.padded_channels(ci)
+            assert not w[:, ci:].any()
+            if w.shape[1] > ci:
+                padded.append((i, name, ci))
+    assert padded == [(1, "iconv", 20), (2, "iconv", 28), (3, "iconv", 22)]
+    x = images(50)
+    want = _jax_forward(jmodel, variables, x, 0.7, dtype=None, smax="window")
+    got = make_serving_forward(model, torch.float32, device="cpu")(
+        torch.from_numpy(x), disp_scale=0.7)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_reflect_conv_inputs_are_what_the_forward_pads(models,
+                                                       monkeypatch):
+    """``reflect_conv_inputs`` of the config gives, in order, the inputs
+    the serving forward hands ``reflect_pad``, with a scale exactly where
+    it says ``gated``, and each conv's output channels."""
+    seen = []
+
+    def recording(x, scale=None):
+        seen.append((tuple(x.shape[1:]), scale is not None))
+        return tpad.reflect_pad(x, scale)
+
+    monkeypatch.setattr("uncertainty_model_tpu_torch.serving.reflect_pad",
+                        recording)
+    _, params = build_serving_params(models[2], torch.float32, "cpu")
+    x = images(51)
+    make_serving_forward(models[2], torch.float32, device="cpu")(
+        torch.from_numpy(x))
+    sites = reflect_conv_inputs(PORT_MODEL["decoder"]["layers"], TINY_INPUT)
+    assert seen == [(hwc, gated) for _, hwc, _, gated in sites]
+    assert [name for name, *_ in sites][:3] == [
+        "dec0_upsample", "dec0_iconv", "dec1_upsample"]
+    outs = [prm[conv][0].shape[0] for prm in params["decoder"]
+            for conv in ("upsample", "iconv", "disp") if conv in prm]
+    assert outs == [c_out for _, _, c_out, _ in sites]
 
 
 def test_f32_matches_eval_model(models):
@@ -145,7 +204,7 @@ def test_bf16_s2d_close_to_jax_bf16(models, pipeline):
 
 
 COUNTED = (tdf.assemble_z, tdf.gate_z, tdf.se_squeeze, tdf.assemble,
-           tconv.gated_conv_elu)
+           tconv.gated_conv_elu, tpad.reflect_pad)
 
 
 @pytest.mark.parametrize("pipeline", ["gate_fold", "gate_z", "squeeze_first"])

@@ -20,6 +20,7 @@ import uncertainty_model_tpu.ops.pallas.decoder_fused as jdf
 from uncertainty_model_tpu.serving import make_serving_forward as jax_serving
 
 from uncertainty_model_tpu_torch.ops import decoder_fused as tdf
+from uncertainty_model_tpu_torch.ops.pad import padded_channels
 from uncertainty_model_tpu_torch.serving import make_serving_forward
 
 ALL = (0, 1, 2, 3, 4)
@@ -115,8 +116,14 @@ def test_specs_name_the_fused_stages(models, name, fused):
             # the skip conv reads the previous fused stage's whole concat
             prev = specs[i - 1] if i else None
             if prev is not None and prev["fused"]:
-                ccat = params["decoder"][i - 1]["iconv"][0].shape[1]
+                # the concat tensor is unpadded; the iconv that reads it
+                # takes zero input channels up to reflect_pad's width
+                iconv = models[2].decoder.layers[i - 1].iconv
+                ccat = iconv.layers[0].layers[0].weight.shape[1]
                 assert prm["se_skip"].shape[1] == ccat
+                w = params["decoder"][i - 1]["iconv"][0]
+                assert w.shape[1] == padded_channels(ccat)
+                assert not w[:, ccat:].any()
 
 
 def test_dec_fold_off_keeps_the_feature_map_conv(models):

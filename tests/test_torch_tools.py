@@ -175,6 +175,35 @@ def test_device_trace_joins():
     assert abs(result["total_ms"] - 0.0115) < 1e-12
 
 
+def test_device_functions_apart_from_operators():
+    """``by_function`` keeps apart the kernels one operator launches (a
+    cuDNN conv and its padding copy, under one ``aten::convolution``),
+    which the (scope, operator) rows sum; the report prints both."""
+    events = [
+        _event("gpu_user_annotation", "dec4", 100.0, 50.0, pid=0, tid=7),
+        _event("user_annotation", "dec4", 10.0, 30.0),
+        _event("cpu_op", "aten::convolution", 12.0, 20.0),
+        _event("cuda_runtime", "cudaLaunchKernel", 14.0, 1.0, corr=1),
+        _event("kernel", "nhwcAddPaddingKernel", 101.0, 4.0, pid=0, tid=7,
+               corr=1),
+        _event("cuda_runtime", "cudaLaunchKernel", 16.0, 1.0, corr=2),
+        _event("kernel", "sm90_xmma_fprop", 106.0, 30.0, pid=0, tid=7,
+               corr=2),
+        _event("cuda_runtime", "cudaLaunchKernel", 18.0, 1.0, corr=3),
+        _event("kernel", "nhwcAddPaddingKernel", 137.0, 2.0, pid=0, tid=7,
+               corr=3),
+    ]
+    result = analyze_trace.attribute(events)
+    assert result["rows"] == {
+        ("dec4", "aten::convolution"): [pytest.approx(0.036), 3]}
+    assert analyze_trace.by_function(result) == [
+        (("dec4", "sm90_xmma_fprop"), [pytest.approx(0.03), 1]),
+        (("dec4", "nhwcAddPaddingKernel"), [pytest.approx(0.006), 2])]
+    printed = analyze_trace.report(result)
+    assert "(scope, device function)" in printed
+    assert "nhwcAddPaddingKernel" in printed
+
+
 def _launched_trace():
     """A card's trace in which every launch has its device record: a
     runtime and a driver kernel launch, a copy, a set and a graph launch
@@ -250,6 +279,26 @@ def test_conv2d_bytes_and_flops_exact():
     assert calls == 1
     assert nbytes == 4 * (x.numel() + w.numel() + b.numel() + y.numel())
     assert flops == 2 * y.numel() * 3 * 3 * 3
+
+
+def test_model_flops_counts_its_share_of_a_conv():
+    """Inside ``scopes.model_flops(share)`` a recorder counts ``share`` of
+    a conv's FLOPs (a conv on zero input channels) and all of its bytes;
+    outside, all of them again."""
+    x = torch.rand(2, 8, 6, 6)
+    x[:, 6:] = 0.0
+    w = torch.rand(4, 8, 3, 3)
+    with perf_budget.Recorder() as rec:
+        with scopes.scope("half"), scopes.model_flops(6 / 8):
+            F.conv2d(x, w)
+        with scopes.scope("whole"):
+            y = F.conv2d(x, w)
+    rows = _rows(rec)
+    full = 2 * y.numel() * 8 * 3 * 3
+    half, whole = rows[("half", "convolution")], rows[("whole", "convolution")]
+    assert half[2] == full * 6 / 8 and whole[2] == full
+    assert half[1] == whole[1]
+    assert scopes.flop_share() == 1.0
 
 
 def test_views_count_zero_and_broadcasts_once():

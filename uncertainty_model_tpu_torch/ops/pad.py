@@ -9,15 +9,27 @@ that case at small inputs: decoder stage 0's reflect-padded 3x3 conv sees a
 reflect padding is a gather with the index vector ``np.pad`` computes,
 which is numpy's rule by construction.  Zero and replicate padding (the
 smoothness loss's gradients) have no such case and use ``F.pad``.
+
+``reflect_pad`` writes the input of a reflect(1)-padded 3x3 conv of the
+serving forward in one pass: the reflect padding, an optional per-(image,
+channel) scale, and zero channels up to a multiple of 8, the width cuDNN
+reads an NHWC input at without a padded copy of its own.  On a CUDA tensor
+it launches the hand-written kernel ``csrc/reflect_pad.cu`` (counted in
+``reflect_pad.launches``); on a CPU tensor it runs
+:func:`reflect_pad_plain`, the same arithmetic in plain PyTorch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .. import _build
+from ..utils.scopes import note_kernel, uncounted
 
 _MODES = {"zeros": "constant", "replicate": "replicate", "reflect": "reflect"}
 
@@ -49,3 +61,91 @@ def pad2d(x: torch.Tensor, padding: tuple[int, int, int, int],
         return reflect_pad2d(x, padding)
     out = F.pad(x.permute(0, 3, 1, 2), padding, mode=mode)
     return out.permute(0, 2, 3, 1)
+
+
+CHANNEL_MULTIPLE = 8
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def padded_channels(c: int) -> int:
+    """``c`` rounded up to a multiple of ``CHANNEL_MULTIPLE``: the channels
+    of :func:`reflect_pad`'s output, and so the input channels of the conv
+    weights that read it."""
+    return -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE
+
+
+def reflect_pad_plain(x: torch.Tensor,
+                      scale: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`reflect_pad`'s arithmetic in plain PyTorch: the gather of
+    :func:`reflect_pad2d`, then the product with ``scale`` (rounded once to
+    ``x``'s type), then zero channels."""
+    out = reflect_pad2d(x, (1, 1, 1, 1))
+    if scale is not None:
+        out = out * scale[:, None, None, :]
+    c = x.shape[-1]
+    return F.pad(out, (0, padded_channels(c) - c))
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("reflect_pad")
+    lib.umt_reflect_pad.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.umt_reflect_pad.restype = ctypes.c_int
+    return lib
+
+
+def reflect_pad(x: torch.Tensor,
+                scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The input of a reflect(1)-padded 3x3 conv, NHWC ``x`` (B, H, W, C)
+    -> (B, H + 2, W + 2, ``padded_channels(C)``): numpy's reflect rule (a
+    size-1 dimension repeats), each value times ``scale[b, c]`` where a
+    ``scale`` (B, C) is given, and zeros in channels C and up.  CPU tensors
+    run the plain version; CUDA tensors (float32 or bfloat16, contiguous,
+    ``scale`` of ``x``'s type) launch the kernel or raise."""
+    if x.ndim != 4 or min(x.shape) < 1:
+        raise ValueError(f"reflect_pad takes a non-empty NHWC tensor, not "
+                         f"{tuple(x.shape)}")
+    b, h, w, c = x.shape
+    if scale is not None and tuple(scale.shape) != (b, c):
+        raise ValueError(f"reflect_pad: scale {tuple(scale.shape)} is not "
+                         f"(B, C) = {(b, c)}")
+    operands = (x, scale)
+    if x.device.type == "cpu":
+        with uncounted():
+            out = reflect_pad_plain(x, scale)
+        note_kernel("reflect_pad", operands, (out,))
+        return out
+    if x.device.type != "cuda":
+        raise RuntimeError(f"reflect_pad has no kernel for {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"reflect_pad kernel takes float32 or bfloat16, not "
+                        f"{x.dtype}")
+    if scale is not None and (scale.dtype != x.dtype
+                              or scale.device != x.device):
+        raise TypeError(f"reflect_pad: scale is {scale.dtype} on "
+                        f"{scale.device}, x {x.dtype} on {x.device}")
+    if any(t is not None and (not t.is_contiguous() or t.data_ptr() % 16)
+           for t in operands):
+        raise ValueError("reflect_pad takes contiguous, 16-byte aligned "
+                         "tensors")
+    if b * (h + 2) >= 2 ** 31:
+        raise ValueError(f"reflect_pad: {b * (h + 2)} padded rows exceed "
+                         "the kernel's grid")
+    out = torch.empty((b, h + 2, w + 2, padded_channels(c)), dtype=x.dtype,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        err = _library().umt_reflect_pad(
+            _DTYPE_CODES[x.dtype], x.data_ptr(),
+            None if scale is None else scale.data_ptr(), out.data_ptr(),
+            b, h, w, c, out.shape[-1],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"reflect_pad kernel launch failed: CUDA error "
+                           f"{err}")
+    reflect_pad.launches += 1
+    note_kernel("reflect_pad", operands, (out,))
+    return out
+
+
+reflect_pad.launches = 0

@@ -16,7 +16,11 @@ that are exact at eval time:
   feature-map and skip halves, the skip half zero-embedded to the previous
   fused stage's concat width (that concat tensor is the next stage's skip),
   and the feature-map half folded into ``assemble_z`` where the feature map
-  has at most 8 channels (the input image at full resolution).
+  has at most 8 channels (the input image at full resolution);
+* for every decoder stage: the reflect-padded 3x3 convs' (upsample,
+  iconv, disp) input channels zero-padded to a multiple of 8, the width of
+  ``ops/pad.py::reflect_pad``'s output, which writes each such conv's input
+  once (reflect-padded and, under gate_fold, gated) for an unpadded conv;
 
 and for the space-to-depth (s2d) stages (``ops/s2d.py``): the input conv
 rewritten to write s2d output directly (stride 4) or, after an s2d stage,
@@ -27,7 +31,8 @@ phases.
 Decoder pipelines (``dec_pipeline``), as in the JAX package:
 
 * ``gate_fold``: ``assemble_z`` writes the concat tensor ungated; the SE
-  gates scale the iconv's input and the next stage's skip-conv input.
+  gates scale the iconv's input (inside ``reflect_pad``) and the next
+  stage's skip-conv input.
 * ``gate_z``: ``assemble_z``, then ``gate_z`` scales the z block in place.
 * ``squeeze_first``: ``se_squeeze`` gives the SE mean, then ``assemble``
   writes the concat tensor once, already gated.
@@ -62,14 +67,15 @@ import torch.nn.functional as F
 
 from .device import resolve_device
 from .models.graph import GraphSpec
-from .models.layers import SMAX, nchw, nhwc, reflect_conv, softmax
+from .models.layers import SMAX, nchw, nhwc, softmax
 from .ops import resize_bilinear
 from .ops.conv import gated_conv_elu, gated_sum
 from .ops.decoder_fused import assemble, assemble_z, gate_z, se_squeeze
+from .ops.pad import padded_channels, reflect_pad
 from .ops.s2d import (block_diag_1x1_kernel, depth_to_space, s2d_bias,
                       s2d_conv_kernel, s2d_in_stride2_conv_kernel,
                       s2d_out_stride2_conv_kernel, space_to_depth)
-from .utils.scopes import scope, span
+from .utils.scopes import model_flops, scope, span
 
 FUSED_STAGES = (2, 3, 4)
 FOLD_MAX_CHANNELS = 8
@@ -119,6 +125,13 @@ def _hwio(w):
 
 def _oihw(w):
     return w.permute(3, 2, 0, 1)
+
+
+def _pad_in(w):
+    """An OIHW conv weight with zero input channels up to
+    ``padded_channels``: the width of ``reflect_pad``'s output."""
+    o, i, kh, kw = w.shape
+    return torch.cat([w, w.new_zeros(o, padded_channels(i) - i, kh, kw)], 1)
 
 
 @torch.no_grad()
@@ -251,8 +264,8 @@ def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
         else:
             prm["se_fm"] = put(se_fm)
         prm["se_skip"] = put(se_skip)
-        prm["upsample"] = (put(up_w), put(up_b))
-        prm["iconv"] = (put(ic_w), put(ic_b))
+        prm["upsample"] = (put(_pad_in(up_w)), put(up_b))
+        prm["iconv"] = (put(_pad_in(ic_w)), put(ic_b))
         se_layer = st.squeeze_excite[1]
         c1, c2 = se_layer.excite[0], se_layer.excite[2]
         if se_layer.fc:
@@ -262,7 +275,7 @@ def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
                          put(c2.weight[:, :, 0, 0]), put(c2.bias))
         if st.calculate_disp:
             conv = st.disp.layers[0]
-            prm["disp"] = (put(conv.weight), put(conv.bias))
+            prm["disp"] = (put(_pad_in(conv.weight)), put(conv.bias))
         dec_specs.append(spec)
         dec_params.append(prm)
     return (tuple(enc_specs), tuple(dec_specs)), {"encoder": enc_params,
@@ -416,6 +429,52 @@ def _upsample(x, r):
     return nchw(resize_bilinear(nhwc(x), (x.shape[2] * r, x.shape[3] * r)))
 
 
+def _reflect_conv(x_nhwc, weight, bias, scale=None):
+    """A decoder stage's reflect(1)-padded 3x3 conv (NCHW out): its input
+    written once by ``reflect_pad``, reflect-padded, times ``scale`` where
+    given and zero-padded to the weight's input channels, then an unpadded
+    conv, whose MACs on the zero channels a recorder does not count as the
+    model's.  (The training model's ``models/layers.py::reflect_conv``
+    keeps the gather, which autograd differentiates.)"""
+    c = x_nhwc.shape[-1]
+    padded = nchw(reflect_pad(x_nhwc.contiguous(), scale))
+    if padded.shape[1] == c:
+        return F.conv2d(padded, weight, bias)
+    with model_flops(c / padded.shape[1]):
+        return F.conv2d(padded, weight, bias)
+
+
+def reflect_conv_inputs(decoder_layers, input_hw, fused_stages=FUSED_STAGES):
+    """The inputs ``reflect_pad`` writes in one gate_fold serving forward
+    at ``input_hw`` of a model whose decoder has the config's
+    ``decoder_layers``, in the order the forward writes them: ``(name,
+    (H, W, C), C_out, gated)`` for each stage's upsample conv (at the
+    stage's input resolution), iconv and, where the stage computes one,
+    disp conv (at its output resolution), ``name`` as ``dec4_iconv``,
+    ``C_out`` the conv's output channels; ``gated``: the iconvs of
+    ``fused_stages``, whose input takes the SE gates.  The keys a layer
+    leaves out take ``DecoderStage``'s defaults."""
+    res, (h, w) = [], input_hw
+    for layer in reversed(decoder_layers):
+        res.insert(0, (h, w))
+        r = layer.get("scale", 2)
+        h, w = h // r, w // r
+    sites = []
+    for i, (layer, (ho, wo)) in enumerate(zip(decoder_layers, res)):
+        r = layer.get("scale", 2)
+        disp = layer.get("disp_channels", 2)
+        cu, co = layer["upsample_channels"], layer["out_channels"]
+        ci = (cu + layer["skip_out_channels"]
+              + (disp if layer.get("concat_disp", True) else 0))
+        sites.append((f"dec{i}_upsample",
+                      (ho // r, wo // r, layer["in_channels"]), cu * r * r,
+                      False))
+        sites.append((f"dec{i}_iconv", (ho, wo, ci), co, i in fused_stages))
+        if layer.get("calculate_disp", True):
+            sites.append((f"dec{i}_disp", (ho, wo, co), disp, False))
+    return tuple(sites)
+
+
 def _decoder_stage(prm, spec, x, fm, skip, disparity, disp_scale):
     """Unfused stage; the SE conv's skip half runs below the upsample
     (both are linear, so conv(up(skip)) == up(conv(skip)))."""
@@ -426,14 +485,18 @@ def _decoder_stage(prm, spec, x, fm, skip, disparity, disp_scale):
     gates = _se_gates(prm["se"], se.mean(dim=(2, 3), dtype=torch.float32),
                       se.dtype)
     skip_out = se * gates[:, :, None, None]
-    x_up = F.pixel_shuffle(F.elu(reflect_conv(x, *prm["upsample"])), r)
+    x_up = F.pixel_shuffle(F.elu(_reflect_conv(nhwc(x), *prm["upsample"])), r)
     parts = [x_up, skip_out]
     if spec["concat_disp"]:
         parts.append(_upsample(disparity, r))
-    out = F.elu(reflect_conv(torch.cat(parts, dim=1), *prm["iconv"]))
+    # concatenated in NHWC, so that the concat is NHWC-contiguous whatever
+    # layouts its parts have (pixel_shuffle's is NCHW on CUDA)
+    out = F.elu(_reflect_conv(torch.cat([nhwc(p) for p in parts], dim=3),
+                              *prm["iconv"]))
     disp = None
     if spec["calculate_disp"]:
-        disp = disp_scale * torch.sigmoid(reflect_conv(out, *prm["disp"]))
+        disp = disp_scale * torch.sigmoid(
+            _reflect_conv(nhwc(out), *prm["disp"]))
     return out, skip_out, disp
 
 
@@ -447,7 +510,7 @@ def _fused_stage(prm, spec, x, fm, skip, disparity, disp_scale):
         cat_prev, scale = skip
         skip = cat_prev if scale is None else cat_prev * scale[:, :, None, None]
     skip_feat_h = nhwc(F.conv2d(skip, prm["se_skip"])).contiguous()
-    xc = nhwc(reflect_conv(x, *prm["upsample"])).contiguous()
+    xc = nhwc(_reflect_conv(nhwc(x), *prm["upsample"])).contiguous()
     if spec["fold"]:
         se_in, k_fm = fm, prm["k_fm"]
     else:
@@ -469,13 +532,12 @@ def _fused_stage(prm, spec, x, fm, skip, disparity, disp_scale):
         else:
             scale = torch.cat([gates, gates.new_ones(
                 gates.shape[0], cat.shape[-1] - spec["cso"])], dim=1)
-    cat = nchw(cat)
-    iconv_in = cat if scale is None else cat * scale[:, :, None, None]
-    out = F.elu(reflect_conv(iconv_in, *prm["iconv"]))
+    out = F.elu(_reflect_conv(cat, *prm["iconv"], scale))
     disp = None
     if spec["calculate_disp"]:
-        disp = disp_scale * torch.sigmoid(reflect_conv(out, *prm["disp"]))
-    return out, (cat, scale), disp
+        disp = disp_scale * torch.sigmoid(
+            _reflect_conv(nhwc(out), *prm["disp"]))
+    return out, (nchw(cat), scale), disp
 
 
 def make_serving_forward(model, dtype=torch.bfloat16, device=None, *,

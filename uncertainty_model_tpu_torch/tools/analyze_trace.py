@@ -42,7 +42,9 @@ child operators') goes to the scopes around it, or ``(outside)``.
 
 It prints what the JAX tool prints: the total, the top 30 (scope,
 operator) rows and the BY MODULE table, with ``(outside)`` (device time
-under no scope) and ``(unattributed)`` rows.
+under no scope) and ``(unattributed)`` rows; for a trace with device
+activity also the top 30 (scope, device function) rows, which tell apart
+the kernels one operator launches.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ HAND_KERNELS = (
     ("gate_z", re.compile(r"gate_z_flat")),
     ("gated_conv_elu", re.compile(r"gated_conv_(wgmma|f32)")),
     ("upsample2x2", re.compile(r"upsample2x2_kernel")),
+    ("reflect_pad", re.compile(r"reflect_pad_kernel")),
     ("warp_rows_fwd", re.compile(r"warp_rows_fwd")),
     ("warp_rows_bwd", re.compile(r"warp_rows_bwd")),
 )
@@ -279,6 +282,17 @@ def by_module(result: dict, depth: int) -> dict:
     return dict(out)
 
 
+def by_function(result: dict) -> list:
+    """``((path, device function), [ms, count])`` of ``result``'s items,
+    the most ms first: the kernels an operator launched, each on its own
+    (a cuDNN conv's padding copy apart from the conv)."""
+    rows = collections.defaultdict(lambda: [0.0, 0])
+    for path, _, name, _, ms, _ in result["items"]:
+        rows[(path, name)][0] += ms
+        rows[(path, name)][1] += 1
+    return sorted(rows.items(), key=lambda kv: -kv[1][0])
+
+
 def report(result: dict, depth: int = 2, top: int = 30) -> str:
     """The JAX tool's printout of ``attribute``'s result."""
     what = "device time" if result["device"] else "host self time (CPU trace)"
@@ -292,6 +306,10 @@ def report(result: dict, depth: int = 2, top: int = 30) -> str:
     rows = sorted(result["rows"].items(), key=lambda kv: -kv[1][0])
     for (path, op), (ms, n) in rows[:top]:
         lines.append(f"{ms:9.3f}  x{n:<5d} {path[:24]:<24s} {op[:70]}")
+    if result["device"]:
+        lines.append(f"\nTOP {top} (scope, device function) (ms):")
+        for (path, name), (ms, n) in by_function(result)[:top]:
+            lines.append(f"{ms:9.3f}  x{n:<5d} {path[:24]:<24s} {name[:90]}")
     lines.append(f"\nBY MODULE (depth {depth}):")
     for path, ms in sorted(by_module(result, depth).items(),
                            key=lambda kv: -kv[1]):

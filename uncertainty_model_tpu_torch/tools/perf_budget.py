@@ -82,8 +82,9 @@ def op_flops(func, args, kwargs, out) -> float:
 class Recorder(TorchDispatchMode):
     """Counts, per (scope path, operation), the calls, bytes and FLOPs of
     what runs inside ``with Recorder() as rec:`` on this thread: aten
-    operations (outside ``utils/scopes.py::uncounted``) and the hand
-    kernels' ``note_kernel`` calls."""
+    operations (outside ``utils/scopes.py::uncounted``; inside
+    ``model_flops`` their FLOPs times its share) and the hand kernels'
+    ``note_kernel`` calls."""
 
     def __init__(self):
         super().__init__()
@@ -106,7 +107,7 @@ class Recorder(TorchDispatchMode):
         if scopes.counting() and func.namespace != "profiler":
             self._add(scopes.current(), func.overloadpacket.__name__,
                       op_bytes(func, args, kwargs, out),
-                      op_flops(func, args, kwargs, out))
+                      op_flops(func, args, kwargs, out) * scopes.flop_share())
         return out
 
     def kernel(self, path, name, nbytes, flops):

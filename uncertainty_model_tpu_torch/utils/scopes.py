@@ -70,6 +70,7 @@ def _state():
         _local.stack = []        # the scopes entered, outermost first
         _local.recorders = []    # the active recorders, innermost last
         _local.uncounted = 0
+        _local.flop_share = 1.0
     return _local
 
 
@@ -273,6 +274,32 @@ class uncounted:
 def counting() -> bool:
     """False inside ``uncounted()``."""
     return _state().uncounted == 0
+
+
+class model_flops:
+    """``with model_flops(share):`` runs an operation of which only
+    ``share`` of the FLOPs it executes are the model's: a conv whose input
+    carries zero channels (``ops/pad.py::reflect_pad``'s output).  An
+    active recorder counts that share of its FLOPs, and all of its
+    bytes."""
+
+    def __init__(self, share: float):
+        self.share = share
+
+    def __enter__(self):
+        state = _state()
+        self.outer, state.flop_share = state.flop_share, self.share
+        return self
+
+    def __exit__(self, *exc):
+        _state().flop_share = self.outer
+        return False
+
+
+def flop_share() -> float:
+    """The share of an operation's FLOPs that are the model's: 1 outside
+    ``model_flops``."""
+    return _state().flop_share
 
 
 def tensor_bytes(t) -> int:
