@@ -17,11 +17,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    channels >= Cso unwritten (they hold NaN before and after); the glue
    also at the stages other build options fuse (``OPTION_GLUE_STAGES``:
    dec0 and dec1, Cso 512 and 256 with no disparity; dec4 without the
-   fold);
+   fold); ``reflect_pad`` at every decoder reflect conv input, bit for
+   bit; ``attend`` at every encoder stage at b128 and b1, in "window" and
+   "nomax" (``check_attend``: the bf16 kernel no farther from the f32 plain
+   version than the bf16 plain version is);
 3. run the serving paths: the 22.5M-parameter flagship model's bf16 serving
    forward at 256x512, batch 8, from random weights made from a seed, with
    the kernel launch counters zeroed just before and read just after; the
-   output is held against the f32 eval model.  First the bench path
+   output is held against the f32 eval model.  Every serving path also
+   launches ``reflect_pad`` 14 times and ``attend`` 5 times (once an
+   encoder stage, native or s2d), and no training, evaluation or CLI run
+   launches either.  First the bench path
    (``s2d_stages=()``, gate_fold: 3 ``assemble_z``), then the JAX
    package's default encoder, ``s2d_stages=(0, 1)``, with each decoder
    pipeline: (a) gate_fold, 8 ``gated_conv_elu`` + 3 ``assemble_z``;
@@ -202,6 +208,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    step's groups, and per one-problem call at each shape as a log; CUDA
    events, median of 9 with spread; ``conv_elu`` and ``upsample2x2``, which
    no path of the package runs, at the flagship's shapes named below;
+   ``reflect_pad`` at the 14 decoder sites and ``attend`` at the five
+   encoder stages at b128 (and at b1), beside ``F.pad`` and beside
+   ``torch.softmax`` with ``torch.einsum``;
    ``gated_conv_elu`` at each s2d stage with 1-4 inputs, so that the time
    at n = 1 against n = 4 for the same conv work gives the cost of
    staging the gated sum, beside the registers and spills of each
@@ -416,10 +425,16 @@ TIMED_OPTION_GLUE_STAGES = OPTION_GLUE_STAGES[:2]
 # disp of dec1-dec4): every serving forward launches reflect_pad for each
 REFLECT_CONVS = 14
 
+# the flagship's encoder stages (enc0-enc4): every serving forward, native
+# or s2d, launches attend once for each
+ATTENTION_STAGES = 5
+# attend is checked and timed at serve-b128's batch and at one frame
+ATTEND_BATCHES = (128, 1)
+
 # the serving forward's other build options, and the launches a forward
 # must make (every other serving kernel: 0)
 ALL_FUSED = (0, 1, 2, 3, 4)
-RP = {"reflect_pad": REFLECT_CONVS}
+RP = {"reflect_pad": REFLECT_CONVS, "attend": ATTENTION_STAGES}
 OPTION_PATHS = {
     "fused_0-4": ({"fused_stages": ALL_FUSED}, {"assemble_z": 5, **RP}),
     "fused_0-4_gate_z": ({"fused_stages": ALL_FUSED, "dec_pipeline": "gate_z"},
@@ -941,6 +956,66 @@ def check_reflect_pad():
     return worst
 
 
+def attend_stages():
+    """The flagship's encoder attention at 256x512: ``(name, tokens,
+    heads, d)`` of enc0-enc4, the (B, N, heads x d) token maps of
+    ``serving._attention``."""
+    from uncertainty_model_tpu_torch.config import (FLAGSHIP_INPUT,
+                                                    FLAGSHIP_MODEL)
+
+    h, w = FLAGSHIP_INPUT
+    return [(f"enc{i}", (h >> (i + 1)) * (w >> (i + 1)), layer["heads"],
+             layer["out_channels"] // layer["heads"])
+            for i, layer in enumerate(FLAGSHIP_MODEL["encoder"]["layers"])]
+
+
+def attend_operands(seed, batch, tokens, c, dtype):
+    """Keys and queries N(0, 2^2), values N(0, 1): (B, N, C) each."""
+    rng = card_rng(seed)
+    return [normal(rng, batch, tokens, c, scale=scale, dtype=dtype)
+            for scale in (2.0, 2.0, 1.0)]
+
+
+def check_attend():
+    """``attend`` at every encoder stage at the batches ``ATTEND_BATCHES``,
+    in the cells' "window" and in "nomax": the bf16 kernel no farther from
+    the f32 plain version on the same inputs than the bf16 plain version
+    (the norm of the difference and its largest element), the f32 kernel
+    within ``F32_TOL`` of the f32 plain version.  Returns the bf16
+    kernel's worst abs error from the f32 plain version."""
+    from uncertainty_model_tpu_torch.ops.attend import attend, attend_plain
+
+    worst = 0.0
+    for i, (name, n, heads, d) in enumerate(attend_stages()):
+        for b in ATTEND_BATCHES:
+            for smax in ("window", "nomax"):
+                low = attend_operands(SEED + 110 + i, b, n, heads * d,
+                                      torch.bfloat16)
+                high = [t.float() for t in low]
+                got = attend(*low, heads, smax)
+                got32 = attend(*high, heads, smax)
+                torch.cuda.synchronize()
+                want = attend_plain(*high, heads, smax)
+                err = (got.float() - want).flatten()
+                err_plain = (attend_plain(*low, heads, smax).float()
+                             - want).flatten()
+                norms = (err.norm().item(), err_plain.norm().item())
+                tops = (err.abs().max().item(), err_plain.abs().max().item())
+                f32_ok = torch.allclose(got32, want, **F32_TOL)
+                log(f"  attend {name} b{b} {smax:6s} ({b}, {n}, {heads}x{d})"
+                    f": bf16 kernel vs f32 plain |err| norm {norms[0]:.4g} "
+                    f"max {tops[0]:.4g}; bf16 plain {norms[1]:.4g} max "
+                    f"{tops[1]:.4g}; f32 kernel within F32_TOL {f32_ok}")
+                if not (norms[0] <= norms[1] and tops[0] <= tops[1]
+                        and f32_ok):
+                    fail(f"attend kernel is farther from the f32 plain "
+                         f"version than allowed at {name} b{b} {smax}")
+                worst = max(worst, tops[0])
+                del low, high, got, got32, want, err, err_plain
+    torch.cuda.empty_cache()
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path
 # ---------------------------------------------------------------------------
@@ -1008,8 +1083,7 @@ def run_main_path(model, counters):
         fail(f"output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all():
         fail("non-finite output")
-    want = {**dict.fromkeys(launches, 0), "assemble_z": 3,
-            "reflect_pad": REFLECT_CONVS}
+    want = {**dict.fromkeys(launches, 0), "assemble_z": 3, **RP}
     if launches != want:
         fail(f"the bench path launched {launches}, not {want}")
     err_bf16 = (out.float() - ref).abs().max().item()
@@ -3587,6 +3661,7 @@ def parallel_cli_rank(rank, world, address, home, out, result_path):
     from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble, assemble_z, gate_z, se_squeeze)
+    from uncertainty_model_tpu_torch.ops.attend import attend
     from uncertainty_model_tpu_torch.ops.pad import reflect_pad
     from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
     from uncertainty_model_tpu_torch.ops.warp_rows import (
@@ -3596,6 +3671,7 @@ def parallel_cli_rank(rank, world, address, home, out, result_path):
                 "se_squeeze": se_squeeze, "assemble": assemble,
                 "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
                 "upsample2x2": upsample2x2, "reflect_pad": reflect_pad,
+                "attend": attend,
                 "warp_rows_fwd": warp_rows_fwd,
                 "warp_rows_bwd": warp_rows_bwd}
     torch.backends.cudnn.allow_tf32 = True   # PyTorch's default
@@ -3726,6 +3802,7 @@ sys.path.insert(0, os.getcwd())
 from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
 from uncertainty_model_tpu_torch.ops.decoder_fused import (
     assemble, assemble_z, gate_z, se_squeeze)
+from uncertainty_model_tpu_torch.ops.attend import attend
 from uncertainty_model_tpu_torch.ops.pad import reflect_pad
 from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
 from uncertainty_model_tpu_torch.ops.warp_rows import warp_rows_bwd, warp_rows_fwd
@@ -3735,6 +3812,7 @@ counters = {"assemble_z": assemble_z, "gate_z": gate_z,
             "se_squeeze": se_squeeze, "assemble": assemble,
             "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
             "upsample2x2": upsample2x2, "reflect_pad": reflect_pad,
+            "attend": attend,
             "warp_rows_fwd": warp_rows_fwd,
             "warp_rows_bwd": warp_rows_bwd}
 record = {"argv": sys.argv[3:], "steps": [], "evals": []}
@@ -5018,6 +5096,70 @@ def time_reflect_pad():
     return rows
 
 
+def attend_work(batch, tokens, heads, d, itemsize=2):
+    """(bytes, f32 operations) of one ``attend`` call: the keys, queries
+    and values read once, the output written once; 2 x 2 B N heads d^2
+    for the context and its application."""
+    c = heads * d
+    return 4 * itemsize * batch * tokens * c, 4 * batch * tokens * c * d
+
+
+def time_attend():
+    """``attend`` at every encoder stage at the batches ``ATTEND_BATCHES``
+    in bf16 and "window": the kernel, the plain version and, timed only,
+    the library's ``torch.softmax`` (bf16 out) and the two
+    ``torch.einsum``s; device time per call (``time_graph_ms``), input
+    sets rotating so that about 200 MB pass per sample."""
+    from uncertainty_model_tpu_torch.ops.attend import attend, attend_plain
+
+    def library(keys, queries, values, heads):
+        b, n, c = keys.shape
+        k, q, v = (t.reshape(b, n, heads, c // heads)
+                   for t in (keys, queries, values))
+        context = torch.einsum("bnhk,bnhv->bhkv", torch.softmax(k, 1), v)
+        return torch.einsum("bhkv,bnhk->bnhv", context,
+                            torch.softmax(q, -1)).reshape(b, n, c)
+
+    rows = []
+    for b in ATTEND_BATCHES:
+        for i, (name, n, heads, d) in enumerate(attend_stages()):
+            nbytes, ops = attend_work(b, n, heads, d)
+            n_sets = max(2, min(16, -(-200_000_000 // nbytes)))
+            sets = [(*attend_operands(SEED + 130 + 16 * i + k, b, n,
+                                      heads * d, torch.bfloat16), heads)
+                    for k in range(n_sets)]
+            reps = max(n_sets, 8)
+            k_ms, k_spread = time_graph_ms(
+                rotating(lambda *a: attend(*a, "window"), sets), reps)
+            p_ms, p_spread = time_graph_ms(
+                rotating(lambda *a: attend_plain(*a, "window"), sets), reps)
+            l_ms, l_spread = time_graph_ms(rotating(library, sets), reps)
+            bound_ms, bound_by = bound(nbytes, ops)
+            rows.append({"stage": name, "batch": b, "shape": [b, n, heads, d],
+                         "dtype": "bfloat16", "bytes": nbytes, "ops": ops,
+                         "ms": k_ms, "ms_spread": k_spread, "plain_ms": p_ms,
+                         "plain_ms_spread": p_spread, "library_ms": l_ms,
+                         "library_ms_spread": l_spread, "bound_ms": bound_ms,
+                         "bytes_ms": bound(nbytes, 0)[0],
+                         "bound_by": bound_by})
+            log(f"  attend {name} b{b} ({b}, {n}, {heads}x{d}): kernel "
+                f"{k_ms * 1e3:.1f} us (spread {k_spread * 1e3:.1f}, "
+                f"{100 * bound_ms / k_ms:.1f}% of its bound), plain "
+                f"{p_ms * 1e3:.1f} us, softmax + einsum {l_ms * 1e3:.1f} us, "
+                f"bound {bound_ms * 1e3:.1f} us by {bound_by} "
+                f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+            del sets
+            torch.cuda.empty_cache()
+        mine = [r for r in rows if r["batch"] == b]
+        log(f"  attend, all {len(mine)} stages at b{b}: kernel "
+            f"{sum(r['ms'] for r in mine):.3f} ms, plain "
+            f"{sum(r['plain_ms'] for r in mine):.3f} ms, bytes bound "
+            f"{sum(r['bytes_ms'] for r in mine):.3f} ms "
+            f"({100 * sum(r['bytes_ms'] for r in mine) / sum(r['ms'] for r in mine):.1f}%"
+            f" of it)")
+    return rows
+
+
 def time_upsample2x2():
     """``upsample2x2`` at the upsample sites at batch ``TIMING_BATCH`` in
     bf16: the kernel, the plain version and ``F.interpolate`` (bilinear,
@@ -5447,6 +5589,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
+    from uncertainty_model_tpu_torch.ops.attend import attend
     from uncertainty_model_tpu_torch.ops.decoder_fused import (
         assemble, assemble_z, gate_z, se_squeeze)
     from uncertainty_model_tpu_torch.ops.pad import reflect_pad
@@ -5461,7 +5604,7 @@ def main() -> int:
                         "se_squeeze": se_squeeze, "assemble": assemble,
                         "gated_conv_elu": gated_conv_elu,
                         "conv_elu": conv_elu, "upsample2x2": upsample2x2,
-                        "reflect_pad": reflect_pad}
+                        "reflect_pad": reflect_pad, "attend": attend}
     train_counters = {"warp_rows_fwd": warp_rows_fwd,
                       "warp_rows_bwd": warp_rows_bwd}
     card = card_line()
@@ -5476,7 +5619,7 @@ def main() -> int:
 
     phase("1: build")
     build_kernels(["assemble_z", "decoder_fused", "gated_conv_elu",
-                   "warp_rows", "upsample2x2", "reflect_pad",
+                   "warp_rows", "upsample2x2", "reflect_pad", "attend",
                    "stereo_decode"])
 
     phase("2: kernels vs plain versions")
@@ -5487,6 +5630,7 @@ def main() -> int:
     conv_elu_worst = check_conv_elu()
     upsample_worst = check_upsample2x2()
     reflect_pad_worst = check_reflect_pad()
+    attend_worst = check_attend()
 
     phase("3: serving paths")
     model = flagship_model()
@@ -5655,6 +5799,7 @@ def main() -> int:
     conv_elu_rows = time_conv_elu()
     upsample_rows = time_upsample2x2()
     reflect_pad_rows = time_reflect_pad()
+    attend_rows = time_attend()
     torch.cuda.empty_cache()
 
     phase("4c: a late trace of the bench chain")
@@ -5713,6 +5858,7 @@ def main() -> int:
                     "conv_elu_shapes": conv_elu_rows,
                     "upsample2x2_sites": upsample_rows,
                     "reflect_pad_sites": reflect_pad_rows,
+                    "attend_stages": attend_rows,
                     "reconstruct_pyramid": recon,
                     "launch_scripts": scripts, "late_trace": late,
                     "profiled_windows": PROFILED_WINDOWS}))
@@ -5804,6 +5950,23 @@ def main() -> int:
     entry["launches_bench_forward"] = bench_check["launches"]["reflect_pad"]
     entry["launches_training_bf16"] = bf16_launches["reflect_pad"]
     entry["launches_evaluation"] = eval_launches["reflect_pad"]
+    kernels.append(entry)
+    # attend: launches in every serving path's forward (5 each, native and
+    # s2d), none in the training and evaluation runs; the times sum one
+    # call at each encoder stage at serve-b128's batch
+    entry = with_options(summed(
+        [r for r in attend_rows if r["batch"] == ATTEND_BATCHES[0]],
+        "attend", csrc + "attend.cu",
+        "no TPU kernel: the port's two softmaxes and two einsums "
+        "(ops/attend.py::attend_plain)", launches["attend"], attend_worst,
+        library=True,
+        unit=f"one call at each encoder stage, batch {ATTEND_BATCHES[0]}, "
+             f"bf16"), option_launches)
+    entry["launches_s2d"] = sum(counts["attend"]
+                                for counts in s2d_launches.values())
+    entry["launches_bench_forward"] = bench_check["launches"]["attend"]
+    entry["launches_training_bf16"] = bf16_launches["attend"]
+    entry["launches_evaluation"] = eval_launches["attend"]
     kernels.append(entry)
     phase("5: the kernels line")
     log(card)

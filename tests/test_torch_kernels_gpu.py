@@ -690,3 +690,164 @@ def test_reflect_pad_kernel_rejects_bad_operands():
     with pytest.raises(TypeError, match="scale"):
         tpad.reflect_pad(x, torch.ones(2, 12, device="cuda"))
     assert tpad.reflect_pad.launches == before
+
+
+# ---------------------------------------------------------------------------
+# attend
+
+def _attend_cases():
+    """(B, N, heads, d, keys_smax, smax) by name: the five stages at b1 and
+    b8 in the cells' "window"; the s2d path's maps of stage 1, (B, 4hw,
+    C/4) on its 32x64 s2d grid, with the keys "window" and the queries
+    "nomax" as ``serving._attention_s2d`` takes them under the JAX
+    package's default; a ragged N (no multiple of a chunk or a lane's
+    step) in "slice" and "nomax"."""
+    from uncertainty_model_tpu_torch.config import (FLAGSHIP_INPUT,
+                                                    FLAGSHIP_MODEL)
+
+    h, w = FLAGSHIP_INPUT
+    cases = {f"enc{i}_b{b}": ((b, (h >> (i + 1)) * (w >> (i + 1)),
+                               layer["heads"],
+                               layer["out_channels"] // layer["heads"],
+                               "window", "window"))
+             for i, layer in enumerate(FLAGSHIP_MODEL["encoder"]["layers"])
+             for b in (1, 8)}
+    cases["s2d_enc1_b8"] = (8, 4 * 32 * 64, 8, 8, "window", "nomax")
+    cases["ragged_b3"] = (3, 4099, 8, 16, "slice", "nomax")
+    return cases
+
+
+ATTEND_CASES = _attend_cases()
+
+
+def _attend_operands(seed, b, n, c):
+    """Keys and queries N(0, 2^2), values N(0, 1), f32 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def t(scale):
+        return scale * torch.randn(b, n, c, generator=gen, device="cuda")
+
+    return t(2.0), t(2.0), t(1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ATTEND_CASES))
+def test_attend_kernel_matches_plain(case):
+    """The yardstick is the plain version in f32 on the same bf16 inputs.
+    The bf16 kernel (f32 throughout, the output rounded once) is no
+    farther from it than the bf16 plain version (each softmax and the
+    context rounded as well), by the norm of the difference and by its
+    largest element; the f32 kernel is within rtol 1e-4, atol 1e-5 of the
+    f32 plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import attend as tat
+
+    b, n, heads, d, keys_smax, smax = ATTEND_CASES[case]
+    operands = _attend_operands(32, b, n, heads * d)
+    before = tat.attend.launches
+    got32 = tat.attend(*operands, heads, smax, keys_smax)
+    torch.testing.assert_close(
+        got32, tat.attend_plain(*operands, heads, smax, keys_smax),
+        rtol=1e-4, atol=1e-5)
+    low = [t.bfloat16() for t in operands]
+    got = tat.attend(*low, heads, smax, keys_smax)
+    torch.cuda.synchronize()
+    assert tat.attend.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == low[0].shape
+    want = tat.attend_plain(*[t.float() for t in low], heads, smax, keys_smax)
+    plain = tat.attend_plain(*low, heads, smax, keys_smax)
+    err = (got.float() - want).flatten()
+    err_plain = (plain.float() - want).flatten()
+    assert err.norm() <= err_plain.norm(), (err.norm(), err_plain.norm())
+    assert err.abs().max() <= err_plain.abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", ["keys", "queries"])
+def test_attend_kernel_overflows_where_plain_does(side):
+    """A logit of 100 in one head of one image: under "nomax" exp
+    overflows (bf16 and f32 share its range), and the kernel's output is
+    non-finite exactly where the plain version's is (the whole head of the
+    image for a key, the token's head for a query), finite and no farther
+    from the f32 yardstick elsewhere; "window" stays finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import attend as tat
+
+    heads = 8
+    operands = list(_attend_operands(33, 2, 3001, heads * 8))
+    operands[0 if side == "keys" else 1][0, 17, 3] = 100.0
+    low = [t.bfloat16() for t in operands]
+    got = tat.attend(*low, heads, "nomax")
+    plain = tat.attend_plain(*low, heads, "nomax")
+    finite = torch.isfinite(plain)
+    assert not finite.all()
+    assert torch.equal(torch.isfinite(got), finite)
+    want = tat.attend_plain(*[t.float() for t in low], heads, "nomax")
+    assert ((got.float() - want)[finite].norm()
+            <= (plain.float() - want)[finite].norm())
+    safe = tat.attend(*low, heads, "window")
+    assert torch.isfinite(safe).all()
+    want = tat.attend_plain(*[t.float() for t in low], heads, "window")
+    assert ((safe.float() - want).norm()
+            <= (tat.attend_plain(*low, heads, "window").float() - want).norm())
+
+
+@pytest.mark.gpu
+def test_attend_launches_in_serving_not_training():
+    """5 launches in one flagship serving forward (the attention of
+    enc0-enc4), native or with the s2d stages (0, 1), none in a training
+    step, whose ``EfficientAttention`` runs under autograd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.config import (
+        FLAGSHIP_INPUT, FLAGSHIP_LOSS, FLAGSHIP_MODEL)
+    from uncertainty_model_tpu_torch.models import RandomlyConnectedModel
+    from uncertainty_model_tpu_torch.ops import attend as tat
+    from uncertainty_model_tpu_torch.serving import make_serving_forward
+    from uncertainty_model_tpu_torch.train import Trainer
+
+    model = RandomlyConnectedModel.from_config(**FLAGSHIP_MODEL, seed=0,
+                                               device="cuda")
+    rng = np.random.default_rng(34)
+
+    def images(b):
+        return torch.from_numpy(rng.uniform(size=(b, *FLAGSHIP_INPUT, 3))
+                                .astype(np.float32)).to("cuda")
+
+    for s2d in ((), (0, 1)):
+        forward = make_serving_forward(model.eval(), torch.bfloat16, "cuda",
+                                       s2d_stages=s2d)
+        before = tat.attend.launches
+        out = forward(images(1))
+        torch.cuda.synchronize()
+        assert tat.attend.launches == before + 5
+        assert torch.isfinite(out).all()
+        del forward
+    trainer = Trainer(model.train(), FLAGSHIP_LOSS, device="cuda")
+    before = tat.attend.launches
+    trainer.train_step({"left": images(2), "right": images(2)}, 0.3, 1e-4)
+    torch.cuda.synchronize()
+    assert tat.attend.launches == before
+
+
+@pytest.mark.gpu
+def test_attend_kernel_rejects_bad_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from uncertainty_model_tpu_torch.ops import attend as tat
+
+    x = torch.zeros(2, 40, 64, device="cuda", dtype=torch.bfloat16)
+    before = tat.attend.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        tat.attend(x.transpose(0, 1).contiguous().transpose(0, 1), x, x, 8,
+                   "window")
+    with pytest.raises(TypeError):
+        tat.attend(x.double(), x.double(), x.double(), 8, "window")
+    with pytest.raises(TypeError, match="differ"):
+        tat.attend(x, x.float(), x, 8, "window")
+    with pytest.raises(ValueError, match="channels"):
+        tat.attend(x[..., :48].contiguous(), x[..., :48].contiguous(),
+                   x[..., :48].contiguous(), 8, "window")   # d = 6
+    assert tat.attend.launches == before

@@ -29,6 +29,10 @@ from uncertainty_model_tpu_torch.models.graph import (
 from uncertainty_model_tpu_torch.ops import (
     avg_pool2d, global_avg_pool, pad2d, pixel_shuffle, reflect_pad2d,
     resize_bilinear, scale_pyramid, shuffle_phase_major)
+from uncertainty_model_tpu_torch.config import FLAGSHIP_INPUT, FLAGSHIP_MODEL
+from uncertainty_model_tpu_torch.models.layers import SMAX
+from uncertainty_model_tpu_torch.ops.attend import (
+    THREADS, attend, attend_plain, context_threads, plan_attend)
 from uncertainty_model_tpu_torch.ops.pad import reflect_pad, reflect_pad_plain
 from uncertainty_model_tpu_torch.ops.resize import _lerp_coeffs, lerp_taps
 
@@ -140,6 +144,145 @@ def test_reflect_pad_plain_is_gather_product_zero_channels(shape, scaled,
     assert reflect_pad.launches == before
     with pytest.raises(ValueError, match="scale"):
         reflect_pad(x, torch.ones(shape[0], c + 1, dtype=dt))
+
+
+# every (keys', queries') softmax formulation pair; None: the keys take smax's
+SMAX_PAIRS = [(k, q) for k in (None, *SMAX) for q in SMAX]
+
+
+def _attend_operands(seed, b, n, c, dtype=torch.float32):
+    """Keys, queries and values (B, N, C): the keys' logits rise along the
+    tokens, so that an online softmax's running max moves again and
+    again."""
+    rng = np.random.default_rng(seed)
+    k = 3 * rng.normal(size=(b, n, c)) + np.linspace(0, 4, n)[None, :, None]
+    q = 3 * rng.normal(size=(b, n, c))
+    v = rng.normal(size=(b, n, c))
+    return [torch.from_numpy(a.astype(np.float32)).to(dtype)
+            for a in (k, q, v)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("keys_smax,smax", SMAX_PAIRS)
+def test_attend_on_cpu_is_plain(keys_smax, smax, dtype):
+    """On the CPU ``attend`` is ``attend_plain`` bit for bit, launches
+    nothing, and refuses unequal maps and unknown formulations."""
+    keys, queries, values = _attend_operands(
+        8, 2, 37, 16, getattr(torch, dtype))
+    before = attend.launches
+    got = attend(keys, queries, values, 4, smax, keys_smax)
+    assert attend.launches == before
+    assert torch.equal(got, attend_plain(keys, queries, values, 4, smax,
+                                         keys_smax))
+    with pytest.raises(ValueError, match="token maps"):
+        attend(keys, queries[:, 1:], values, 4, smax, keys_smax)
+    with pytest.raises(ValueError, match="formulations"):
+        attend(keys, queries, values, 4, "max", keys_smax)
+
+
+def _merge(states, keys_max):
+    """Online-softmax states ``(m, s, acc)`` of disjoint token sets ->
+    theirs together: each rescaled to the common max (0 without one)."""
+    if keys_max:
+        top = torch.stack([m for m, _, _ in states]).amax(0)
+    else:
+        top = torch.zeros_like(states[0][0])
+    s = sum(s * torch.exp(m - top) for m, s, _ in states)
+    acc = sum(a * torch.exp(m - top)[..., None] for m, _, a in states)
+    return top, s, acc
+
+
+def _attend_as_the_kernel(keys, queries, values, heads, smax, keys_smax,
+                          chunk, lanes):
+    """``csrc/attend.cu``'s algorithm in plain PyTorch: each chunk of
+    ``chunk`` tokens cut among ``lanes`` lanes (a lane every lanes-th
+    token, four at a time, its running max, sum and context rescaled when
+    the max rises), the lanes merged, the chunks' partials rescaled to the
+    global max and summed; the context normalised; the queries' softmax
+    and the product, token by token."""
+    b, n, c = keys.shape
+    d = c // heads
+    keys_max = (keys_smax or smax) != "nomax"
+    kh, vh = (t.reshape(b, n, heads, d) for t in (keys, values))
+    parts = []
+    for n0 in range(0, n, chunk):
+        states = []
+        for lane in range(lanes):
+            m = torch.full((b, heads, d), -np.inf if keys_max else 0.0)
+            s = torch.zeros(b, heads, d)
+            acc = torch.zeros(b, heads, d, d)
+            tokens = torch.arange(n0 + lane, min(n, n0 + chunk), lanes)
+            for at in range(0, len(tokens), 4):
+                step = tokens[at:at + 4]
+                x = kh[:, step]
+                if keys_max:
+                    top = torch.maximum(m, x.amax(1))
+                    s = s * torch.exp(m - top)
+                    acc = acc * torch.exp(m - top)[..., None]
+                    m = top
+                e = torch.exp(x - m[:, None])
+                s = s + e.sum(1)
+                acc = acc + torch.einsum("buhk,buhv->bhkv", e, vh[:, step])
+            states.append((m, s, acc))
+        parts.append(_merge(states, keys_max))
+    _, s, acc = _merge(parts, keys_max)
+    context = acc / s[..., None]
+    q = queries.reshape(b, n, heads, d)
+    if smax != "nomax":
+        q = q - q.amax(-1, keepdim=True)
+    e = torch.exp(q)
+    w = e * (1 / e.sum(-1, keepdim=True))
+    return torch.einsum("bnhk,bhkv->bnhv", w, context).reshape(b, n, c)
+
+
+@pytest.mark.parametrize("keys_smax,smax", SMAX_PAIRS)
+@pytest.mark.parametrize("d,heads,n,chunk", [
+    (4, 8, 1001, 96),    # enc0's heads: 32 lanes, the last chunk 41 tokens
+    (64, 2, 203, 64),    # enc4's width: 2 lanes, the last chunk 11 tokens
+], ids=["d4", "d64"])
+def test_attend_kernel_algorithm_matches_plain(d, heads, n, chunk, keys_smax,
+                                               smax):
+    """The kernel's online softmax over ragged chunks and lanes, its
+    rescaled combine and its apply equal ``attend_plain`` in f32 (1e-5):
+    the keys' softmax over all the tokens, exactly but for rounding."""
+    keys, queries, values = _attend_operands(9, 2, n, d * heads)
+    group = plan_attend(2, n, heads, d, 132).group
+    lanes = THREADS // (group * context_threads(d))
+    assert n % chunk and n > chunk
+    got = _attend_as_the_kernel(keys, queries, values, heads, smax,
+                                keys_smax, chunk, lanes)
+    torch.testing.assert_close(
+        got, attend_plain(keys, queries, values, heads, smax, keys_smax),
+        rtol=1e-5, atol=1e-5)
+
+
+# the flagship's encoder attention at 256x512: (tokens, heads, d) of
+# enc0-enc4
+FLAGSHIP_ATTENTION = [
+    ((FLAGSHIP_INPUT[0] >> (i + 1)) * (FLAGSHIP_INPUT[1] >> (i + 1)),
+     layer["heads"], layer["out_channels"] // layer["heads"])
+    for i, layer in enumerate(FLAGSHIP_MODEL["encoder"]["layers"])]
+
+
+@pytest.mark.parametrize("batch", [1, 128])
+def test_plan_attend_covers_the_tokens(batch):
+    """The cut of each flagship stage on a 132-SM card: a block's heads
+    divide the heads and fit its threads, the chunks and apply blocks
+    cover the tokens, each lane takes at least 8 tokens where the image
+    takes more than one chunk, and a single image is cut finely enough for
+    the card (enc0 at b1: 128 chunks)."""
+    for n, heads, d in FLAGSHIP_ATTENTION:
+        group, chunk, block = plan_attend(batch, n, heads, d, 132)
+        assert heads % group == 0
+        assert THREADS % (group * context_threads(d)) == 0
+        lanes = THREADS // (group * context_threads(d))
+        for size in (chunk, block):
+            assert 1 <= size <= n
+        if chunk < n:
+            assert chunk >= 8 * lanes
+        if batch == 128 and d == 64:
+            assert (chunk, block) == (n, n)
+    assert plan_attend(1, 32768, 8, 4, 132).chunk == 32768 // 128
 
 
 @pytest.mark.parametrize("stage", [1, 2, 3, 4, 5])

@@ -52,7 +52,9 @@ its scope, as there.  The whole call is the span recorder's ``serve``
 
 Softmaxes subtract their max and sum in f32 by default (``smax="window"``;
 the JAX package's default, "nomax", drops the max: the two are equal in
-exact arithmetic, and only this one cannot overflow).
+exact arithmetic, and only this one cannot overflow).  The attention's
+core, both softmaxes, the per-head context and its application, is
+``ops/attend.py::attend``: on CUDA tensors one hand-written kernel in f32.
 
 The options are keyword arguments with the port's defaults; the port does
 not read the JAX package's ``UMT_*`` environment variables.
@@ -67,8 +69,9 @@ import torch.nn.functional as F
 
 from .device import resolve_device
 from .models.graph import GraphSpec
-from .models.layers import SMAX, nchw, nhwc, softmax
+from .models.layers import SMAX, nchw, nhwc
 from .ops import resize_bilinear
+from .ops.attend import attend
 from .ops.conv import gated_conv_elu, gated_sum
 from .ops.decoder_fused import assemble, assemble_z, gate_z, se_squeeze
 from .ops.pad import padded_channels, reflect_pad
@@ -287,28 +290,13 @@ def build_serving_params(model, dtype=torch.bfloat16, device=None, *,
 # ---------------------------------------------------------------------------
 
 
-def _attend(keys, queries, values, heads, smax, keys_smax=None):
-    """EfficientAttention on (B, N, C) token maps: keys softmaxed over the
-    tokens (in ``keys_smax``'s formulation, default ``smax``), queries
-    over each head's channels (in ``smax``'s), per-head context."""
-    b, n, c = keys.shape
-
-    def split(t):
-        return t.reshape(b, n, heads, c // heads)
-
-    keys = softmax(split(keys), 1, keys_smax or smax)
-    queries = softmax(split(queries), -1, smax)
-    context = torch.einsum("bnhk,bnhv->bhkv", keys, split(values))
-    return torch.einsum("bhkv,bnhk->bnhv", context, queries).reshape(b, n, c)
-
-
 def _attention(prm, heads, x, smax):
     """EfficientAttention on folded params; 1x1 convs as token matmuls."""
     b, c, h, w = x.shape
     tokens = nhwc(x).reshape(b, h * w, c)
     keys, queries, values = (F.linear(tokens, *prm[name])
                              for name in ("keys", "queries", "values"))
-    attended = _attend(keys, queries, values, heads, smax)
+    attended = attend(keys, queries, values, heads, smax)
     out = F.linear(attended, *prm["reprojection"])
     return nchw(out.reshape(b, h, w, c)) + x
 
@@ -324,7 +312,7 @@ def _attention_s2d(prm, heads, x, smax):
     tokens = x.reshape(b, h * w, c4)
     keys, queries, values = (F.linear(tokens, *prm[name]).reshape(
         b, 4 * h * w, c4 // 4) for name in ("keys", "queries", "values"))
-    attended = _attend(keys, queries, values, heads, smax, "window")
+    attended = attend(keys, queries, values, heads, smax, "window")
     return F.linear(attended.reshape(b, h * w, c4),
                     *prm["reprojection"]).reshape(b, h, w, c4) + x
 

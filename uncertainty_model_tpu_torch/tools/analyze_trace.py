@@ -76,6 +76,7 @@ HAND_KERNELS = (
     ("gated_conv_elu", re.compile(r"gated_conv_(wgmma|f32)")),
     ("upsample2x2", re.compile(r"upsample2x2_kernel")),
     ("reflect_pad", re.compile(r"reflect_pad_kernel")),
+    ("attend", re.compile(r"attend_(context|combine|apply)")),
     ("warp_rows_fwd", re.compile(r"warp_rows_fwd")),
     ("warp_rows_bwd", re.compile(r"warp_rows_bwd")),
 )

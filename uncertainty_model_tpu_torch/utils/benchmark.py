@@ -14,8 +14,11 @@
 * The barrier: on CUDA, events recorded on the device's current stream
   around each chain, read after the last one has synchronized.
   ``time.perf_counter`` is used only on the CPU (``device="cpu"``), where
-  each operation has finished when it returns.  There is no fallback: by
-  default the timer runs on CUDA, and raises where there is none.
+  each operation has finished when it returns: nothing beside the passes
+  is pending for a slope to cancel, so a CPU sample is the mean time a
+  pass over both chains (a slope there turns negative when the host
+  stalls the ``k1`` chain).  There is no fallback: by default the timer
+  runs on CUDA, and raises where there is none.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def slope_sample(forward, x0: torch.Tensor, k1: int = 2,
                  k2: int = 8) -> float:
     """One sample: a chain of ``k1`` passes, then one of ``k2``, timed on
     ``x0``'s device; ``((t2 - t1) - (t1 - t0)) / (k2 - k1)`` seconds a
-    pass."""
+    pass on CUDA, ``(t2 - t0) / (k1 + k2)`` on the CPU."""
     if x0.device.type == "cuda":
         stream = torch.cuda.current_stream(x0.device)
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -58,9 +61,8 @@ def slope_sample(forward, x0: torch.Tensor, k1: int = 2,
     elif x0.device.type == "cpu":
         t0 = time.perf_counter()
         chain(forward, x0, k1)
-        t1 = time.perf_counter()
         chain(forward, x0, k2)
-        t10, t21 = t1 - t0, time.perf_counter() - t1
+        return (time.perf_counter() - t0) / (k1 + k2)
     else:
         raise ValueError(f"no timer for device {x0.device}")
     return (t21 - t10) / (k2 - k1)
