@@ -259,6 +259,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from uncertainty_model_tpu_torch.ops import kernels as hand_kernels
 from uncertainty_model_tpu_torch.tools.perf_budget import (
     BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S)
 
@@ -342,8 +343,6 @@ LAG_GRAD_REL = 1e-4
 DSRC_TOL = 1e-5     # warp_rows dsrc: 1e-5 * (1 + sum of the terms' |.|)
 CONV_F32_TOL = 1e-5     # gated_conv_elu f32: 1e-5 * (1 + sum of the terms' |.|)
 WARP_LIBRARY_TOL = 1e-2   # grid_sample vs the kernel (x -> grid rounding)
-PORT_KERNELS = ("decoder_rows", "gate_z_flat", "gated_conv",
-                "warp_rows", "upsample2x2")   # device kernel names, for the profiler
 CLI_CONFIG = "configs/uncertainty.yml"
 CLI_TRAIN_PAIRS = 16    # the CLI phase's da Vinci tree: 2 steps an epoch
 PARALLEL_CLI_TIMEOUT_S = 300  # the parallel CLI's processes, all together
@@ -1058,7 +1057,7 @@ def images(batch, seed):
     return torch.from_numpy(x).to("cuda")
 
 
-def run_main_path(model, counters):
+def run_main_path(model):
     """The bench path's bf16 and f32 forwards at batch 8; returns
     (launches, forward, x, f32 eval model output)."""
     from uncertainty_model_tpu_torch.serving import make_serving_forward
@@ -1071,11 +1070,10 @@ def run_main_path(model, counters):
     ref = ref.permute(0, 2, 3, 1).float()
 
     forward = make_serving_forward(model, dtype=torch.bfloat16)
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     out = forward(x)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
 
     log(f"main path: bf16 serving forward {tuple(x.shape)} -> "
         f"{tuple(out.shape)} {out.dtype}; launches {launches}")
@@ -1103,7 +1101,7 @@ def run_main_path(model, counters):
     return launches, forward, x, ref
 
 
-def run_paths(model, counters, x, ref, paths):
+def run_paths(model, x, ref, paths):
     """The forwards of ``paths`` (``S2D_PATHS``: (a), (b), (c); or
     ``OPTION_PATHS``) at batch 8 on ``x``: bf16, counters zeroed just
     before and read just after, each count as listed; then f32 (TF32
@@ -1115,14 +1113,13 @@ def run_paths(model, counters, x, ref, paths):
     forwards, launches, errs = {}, {}, {}
     for key, (options, expected) in paths.items():
         forward = make_serving_forward(model, dtype=torch.bfloat16, **options)
-        for fn in counters.values():
-            fn.launches = 0
+        hand_kernels.reset_launches()
         out = forward(x)
         torch.cuda.synchronize()
-        got = {name: fn.launches for name, fn in counters.items()}
+        got = hand_kernels.launch_counts()
         log(f"path ({key}) {options}: bf16 forward {tuple(x.shape)} -> "
             f"{tuple(out.shape)}; launches {got}")
-        if got != {name: expected.get(name, 0) for name in counters}:
+        if got != {name: expected.get(name, 0) for name in got}:
             fail(f"path ({key}) launched {got}, not {expected}")
         if tuple(out.shape) != tuple(ref.shape) or not torch.isfinite(out).all():
             fail(f"path ({key}) output {tuple(out.shape)} is not finite or "
@@ -1171,7 +1168,7 @@ def flagship_trainer(seed, device="cuda", dtype=None, distributed=False,
                    distributed=distributed)
 
 
-def run_training_path(counters, dtype=None, distributed=False,
+def run_training_path(dtype=None, distributed=False,
                       s2d_stages=()):
     """``train_one_epoch`` over ``TRAIN_STEPS`` repeats of one batch, the
     losses read after every step, the model computing in ``dtype`` (None:
@@ -1189,15 +1186,14 @@ def run_training_path(counters, dtype=None, distributed=False,
     seen = []
 
     def progress(averages):
-        seen.append(({k: fn.launches for k, fn in counters.items()},
+        seen.append((hand_kernels.launch_counts(),
                      averages["disp"] + averages["unc"]))
 
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     trainer.train_one_epoch([batch] * TRAIN_STEPS, disp_scale, TRAIN_LR,
                             progress=progress, metrics_every=1)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
 
     # averages are running sums of batch means over the images so far:
     # step i's total loss is the difference of two of them, times the batch
@@ -1404,7 +1400,7 @@ def eval_batches(batch, seed, n=EVAL_BATCHES, device="cuda"):
     return [stereo_batch(batch, seed + i, device) for i in range(n)]
 
 
-def run_evaluation(counters):
+def run_evaluation():
     """``evaluate_model`` of the flagship at batch ``EVAL_BATCH`` over
     ``EVAL_BATCHES`` seeded batches, the counters zeroed just before and
     read just after (1 ``warp_rows`` forward launch a batch, nothing
@@ -1416,16 +1412,15 @@ def run_evaluation(counters):
     torch.backends.cuda.matmul.allow_tf32 = False
     model = flagship_trainer(SEED + 20).model
     loader = eval_batches(EVAL_BATCH, SEED + 21)
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     metrics = evaluate_model(model, loader, scale=adjust_scale(), no_pbar=True)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
     log(f"evaluation: flagship f32 b{EVAL_BATCH} 256x512 x{EVAL_BATCHES}: "
         f"ssim (left, right) {metrics[0]}, (ause, aurg) {metrics[1]}; "
         f"launches {launches}")
     want = {name: EVAL_BATCHES if name == "warp_rows_fwd" else 0
-            for name in counters}
+            for name in launches}
     if launches != want:
         fail(f"evaluation launched {launches}, not {want}")
     if not np.isfinite(np.ravel(metrics)).all():
@@ -1466,7 +1461,7 @@ def check_eval_step_against_cpu():
     return result
 
 
-def run_train_model_with_checkpoints(counters, val_loader):
+def run_train_model_with_checkpoints(val_loader):
     """``Trainer.train_model`` for 2 epochs of 2 batches at batch
     ``TRAIN_BATCH`` with an evaluation and a checkpoint every epoch (5 + 5
     ``warp_rows`` launches a step, 1 forward a validation batch); then
@@ -1482,15 +1477,14 @@ def run_train_model_with_checkpoints(counters, val_loader):
     loader = eval_batches(TRAIN_BATCH, SEED + 26, n=steps)
     per_step = len(warp_groups(TRAIN_BATCH))
     with tempfile.TemporaryDirectory() as tmp:
-        for fn in counters.values():
-            fn.launches = 0
+        hand_kernels.reset_launches()
         t0 = time.perf_counter()
         losses, metrics = trainer.train_model(
             loader, epochs, TRAIN_LR, val_loader=val_loader, evaluate_every=1,
             save_every=1, save_model_to=tmp, no_pbar=True)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = hand_kernels.launch_counts()
         names = sorted(os.listdir(tmp))
         want = {"warp_rows_fwd": epochs * (steps * per_step
                                            + len(val_loader)),
@@ -1498,7 +1492,7 @@ def run_train_model_with_checkpoints(counters, val_loader):
         log(f"train_model: {epochs} epochs x {steps} batches, b{TRAIN_BATCH}, "
             f"{seconds:.1f} s: losses {losses}; validation {metrics}; "
             f"checkpoints {names}; launches {launches}")
-        if launches != {**dict.fromkeys(counters, 0), **want}:
+        if launches != {**dict.fromkeys(launches, 0), **want}:
             fail(f"train_model launched {launches}, not {want}")
         if names != ["epoch_001", "epoch_002", "final"]:
             fail(f"train_model wrote {names}")
@@ -1704,7 +1698,7 @@ def stepping_with(optimizer, grads, own):
     optimizer.step = stepped
 
 
-def check_converted_resume(counters):
+def check_converted_resume():
     """A run resumed from a checkpoint of ``convert.from_jax_train_state``,
     at flagship width with the discriminator (f32, b8, 256x512): the
     port's run takes ``CONVERT_STEPS`` adversarial steps (the clone
@@ -1769,11 +1763,10 @@ def check_converted_resume(counters):
     own = []
     stepping_with(resumed.optimizer, grads[0], own)
     stepping_with(resumed.disc_optimizer, grads[1], own)
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     got = resumed.train_step(batch, disp_scale, TRAIN_LR, step_idx)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
     losses_equal = {k: torch.equal(got[k], want[k]) for k in want}
     stepped = state_differences(run, resumed)
     rel = [((g - w).norm() / w.norm().clamp_min(1e-30)).item()
@@ -1788,7 +1781,7 @@ def check_converted_resume(counters):
         f"launches {launches}")
     per_step = len(warp_groups(TRAIN_BATCH))
     want_launches = {name: per_step if name.startswith("warp_rows") else 0
-                     for name in counters}
+                     for name in launches}
     if not all(losses_equal.values()) or stepped:
         fail("the resumed step does not equal the run's")
     if not median < WHOLE_STEP_MEDIAN_REL:
@@ -1870,7 +1863,7 @@ def cli_argv(home, out, *extra):
             "--save-results-to", os.path.join(out, "results"), *extra]
 
 
-def run_cli(counters, argv, parallel=False):
+def run_cli(argv, parallel=False):
     """``cli.main.main`` (``cli.parallel_main.main`` where ``parallel``)
     in this process on ``argv``, the counters zeroed just before and read
     just after; each training step's and evaluation batch's own launches
@@ -1891,11 +1884,11 @@ def run_cli(counters, argv, parallel=False):
 
     def recorded(fn, into):
         def wrapper(*args, **kwargs):
-            before = {k: c.launches for k, c in counters.items()}
+            before = hand_kernels.launch_counts()
             out = fn(*args, **kwargs)
             into.append((len(args[1]["left"]),
-                         {k: c.launches - before[k]
-                          for k, c in counters.items()}))
+                         {k: n - before[k]
+                          for k, n in hand_kernels.launch_counts().items()}))
             return out
         return wrapper
 
@@ -1906,14 +1899,13 @@ def run_cli(counters, argv, parallel=False):
     trainer.Trainer.train_step = recorded(train_step, steps)
     evaluate.eval_step = recorded(eval_step, evals)
     try:
-        for fn in counters.values():
-            fn.launches = 0
+        hand_kernels.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             main(args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = hand_kernels.launch_counts()
     finally:
         trainer.Trainer.train_step = train_step
         evaluate.eval_step = eval_step
@@ -2013,7 +2005,7 @@ def check_cli_outputs(args, run, epochs, first=1, adversarial=False):
     return results
 
 
-def run_cli_path(counters, home, out):
+def run_cli_path(home, out):
     """The CLI on the flagship at full width from PNG files: 2 epochs with
     an evaluation and a checkpoint each, then ``--resume-from epoch_001``
     (epoch 2 alone, and ``final``)."""
@@ -2026,7 +2018,7 @@ def run_cli_path(counters, home, out):
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     args, printed, run, launches, steps, evals = run_cli(
-        counters, cli_argv(home, os.path.join(out, "run")))
+        cli_argv(home, os.path.join(out, "run")))
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         fail("the CLI's --precision float32 left TF32 on")
     check_cli_launches(launches, steps, evals, CLI_EPOCHS)
@@ -2035,8 +2027,8 @@ def run_cli_path(counters, home, out):
     log("  resume from epoch_001:")
     epoch_1 = os.path.join(args.save_model_to, run, "epoch_001")
     r_args, r_printed, r_run, r_launches, r_steps, r_evals = run_cli(
-        counters, cli_argv(home, os.path.join(out, "resumed"),
-                           "--resume-from", epoch_1))
+        cli_argv(home, os.path.join(out, "resumed"),
+                 "--resume-from", epoch_1))
     if "Epoch #1:" in r_printed or "Epoch #2:" not in r_printed:
         fail("the resumed run did not run epoch 2 alone")
     check_cli_launches(r_launches, r_steps, r_evals, 1)
@@ -2334,7 +2326,7 @@ def check_bf16_trajectory(steps=5):
     return {"losses": losses, "max_rel": max(rel)}
 
 
-def run_bf16_cli(counters, home, out):
+def run_bf16_cli(home, out):
     """``--precision bfloat16`` for one epoch with an evaluation and a
     checkpoint, on phase 3d's tree: the launches of each step and
     evaluation batch, the outputs, the switches the CLI sets, and
@@ -2345,8 +2337,8 @@ def run_bf16_cli(counters, home, out):
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
     args, printed, run, launches, steps, evals = run_cli(
-        counters, cli_argv(home, out, "--precision", "bfloat16",
-                           "--epochs", "1"))
+        cli_argv(home, out, "--precision", "bfloat16",
+                 "--epochs", "1"))
     if (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cuda.matmul
             .allow_bf16_reduced_precision_reduction):
@@ -2426,7 +2418,7 @@ def plain_loss(trainer, batch, disp_scale):
     return (disp_loss + error_loss).item()
 
 
-def run_adversarial_path(counters):
+def run_adversarial_path():
     """``train_one_epoch`` of the flagship with its discriminator in f32
     at batch ``TRAIN_BATCH``, ``TRAIN_STEPS`` repeats of one batch, the
     losses read after every step (the perceptual term live from step
@@ -2452,15 +2444,14 @@ def run_adversarial_path(counters):
             trainer.disc_lag.parameters(), trainer.disc.parameters()))
 
     def progress(averages):
-        seen.append(({k: fn.launches for k, fn in counters.items()},
+        seen.append((hand_kernels.launch_counts(),
                      averages, lag_is_live()))
 
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     trainer.train_one_epoch([batch] * TRAIN_STEPS, disp_scale, TRAIN_LR,
                             progress=progress, metrics_every=1)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
     after = plain_loss(trainer, batch, disp_scale)
 
     losses = {}
@@ -2758,7 +2749,7 @@ def check_adversarial_step_against_cpu(disp_scale):
     return result
 
 
-def run_adversarial_cli(counters, home, out):
+def run_adversarial_cli(home, out):
     """``--adversarial`` for one epoch with an evaluation and a checkpoint
     on phase 3d's tree (launches of each step and evaluation batch, the
     discriminator's parameter count, the outputs with ``results.json``'s
@@ -2768,7 +2759,7 @@ def run_adversarial_cli(counters, home, out):
     from uncertainty_model_tpu_torch.train import load_checkpoint
 
     args, printed, run, launches, steps, evals = run_cli(
-        counters, cli_argv(home, out, "--adversarial", "--epochs", "1"))
+        cli_argv(home, out, "--adversarial", "--epochs", "1"))
     if (f"Discriminator has {FLAGSHIP_DISC_PARAMS:,} learnable parameters."
             not in printed):
         fail("the adversarial CLI did not print the discriminator's size")
@@ -2797,9 +2788,9 @@ def run_adversarial_cli(counters, home, out):
 
     log("  adversarial resume from epoch_001:")
     r_args, r_printed, r_run, r_launches, r_steps, r_evals = run_cli(
-        counters, cli_argv(home, os.path.join(out, "resumed"), "--adversarial",
-                           "--resume-from",
-                           os.path.join(model_dir, "epoch_001")))
+        cli_argv(home, os.path.join(out, "resumed"), "--adversarial",
+                 "--resume-from",
+                 os.path.join(model_dir, "epoch_001")))
     if "Epoch #1:" in r_printed or "Epoch #2:" not in r_printed:
         fail("the resumed adversarial run did not run epoch 2 alone")
     check_cli_launches(r_launches, r_steps, r_evals, 1)
@@ -2817,7 +2808,7 @@ def run_adversarial_cli(counters, home, out):
 # ---------------------------------------------------------------------------
 
 
-def run_parallel_cli(counters, home, out, serial_losses):
+def run_parallel_cli(home, out, serial_losses):
     """``cli.parallel_main`` with ``--num-processes 1`` (its own NCCL group
     of one, set up and destroyed by the CLI) on phase 3d's tree for one
     f32 epoch with an evaluation and a checkpoint: 5 + 5 ``warp_rows``
@@ -2830,8 +2821,8 @@ def run_parallel_cli(counters, home, out, serial_losses):
 
     torch.backends.cudnn.allow_tf32 = True   # PyTorch's default
     args, printed, run, launches, steps, evals = run_cli(
-        counters, cli_argv(home, out, "--epochs", "1", "--num-processes",
-                           "1"), parallel=True)
+        cli_argv(home, out, "--epochs", "1", "--num-processes",
+                 "1"), parallel=True)
     if parallel.is_distributed():
         fail("the parallel CLI left its process group")
     if torch.backends.cudnn.allow_tf32:
@@ -3022,7 +3013,7 @@ def count_collectives(trainer, batch, disp_scale):
             "nccl_kernels": kernels}
 
 
-def run_ddp_adversarial(counters, disp_scale):
+def run_ddp_adversarial(disp_scale):
     """The adversarial step through DDP (the model's and the live
     discriminator's wrappers, every BatchNorm of the model, the live
     discriminator and the clone synced) at batch ``TRAIN_BATCH``: one step
@@ -3041,14 +3032,13 @@ def run_ddp_adversarial(counters, disp_scale):
     loss_rel = {k: abs(got[k].item() - w.item()) / abs(w.item())
                 for k, w in want.items()}
     seen = []
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     ddp.train_one_epoch([batch] * 2, disp_scale, TRAIN_LR, metrics_every=1,
                         progress=lambda a: seen.append(
-                            ({k: fn.launches for k, fn in counters.items()},
+                            (hand_kernels.launch_counts(),
                              a)))
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
     log(f"  DDP adversarial step: synced BatchNorm layers {layers}; losses "
         + ", ".join(f"{k} {got[k].item():.7f} (rel {v:.3g})"
                     for k, v in loss_rel.items())
@@ -3189,7 +3179,7 @@ def check_entry(model, x, ref):
     return {"max_abs_vs_eval_model": err, "parameters": n_params}
 
 
-def check_bench_forward(model, counters, x, ref, nomax_launches):
+def check_bench_forward(model, x, ref, nomax_launches):
     """The bench's forward (``bench.bench_forward``: ``bench.py``'s options,
     "nomax") at batch 8 on phase 3's weights: its launches equal the
     ``smax="nomax"`` option path's (3 ``assemble_z``), the output within
@@ -3197,11 +3187,10 @@ def check_bench_forward(model, counters, x, ref, nomax_launches):
     from uncertainty_model_tpu_torch.bench import bench_forward
 
     forward = bench_forward(model)
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     out = forward(x)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
     err = (out.float() - ref).abs().max().item()
     log(f"  the bench's forward bf16 {tuple(x.shape)} -> {tuple(out.shape)}: "
         f"launches {launches} (the nomax path's {nomax_launches}); vs the "
@@ -3658,24 +3647,8 @@ def parallel_cli_rank(rank, world, address, home, out, result_path):
     3d's tree for one f32 epoch (``run_cli``: this rank's launches per
     step and per evaluation batch); rank 0 also checks the outputs.  The
     result is pickled to ``result_path``."""
-    from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
-    from uncertainty_model_tpu_torch.ops.decoder_fused import (
-        assemble, assemble_z, gate_z, se_squeeze)
-    from uncertainty_model_tpu_torch.ops.attend import attend
-    from uncertainty_model_tpu_torch.ops.pad import reflect_pad
-    from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
-    from uncertainty_model_tpu_torch.ops.warp_rows import (
-        warp_rows_bwd, warp_rows_fwd)
-
-    counters = {"assemble_z": assemble_z, "gate_z": gate_z,
-                "se_squeeze": se_squeeze, "assemble": assemble,
-                "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
-                "upsample2x2": upsample2x2, "reflect_pad": reflect_pad,
-                "attend": attend,
-                "warp_rows_fwd": warp_rows_fwd,
-                "warp_rows_bwd": warp_rows_bwd}
     torch.backends.cudnn.allow_tf32 = True   # PyTorch's default
-    args, _, run, launches, steps, evals = run_cli(counters, cli_argv(
+    args, _, run, launches, steps, evals = run_cli(cli_argv(
         home, out, "--epochs", "1", "--num-processes", str(world),
         "--process-id", str(rank), "--coordinator-address", address),
         parallel=True)
@@ -3799,37 +3772,25 @@ import atexit, json, os, runpy, sys
 if sys.argv[1:2] != ["-m"]:
     os.execv(sys.executable, [sys.executable] + sys.argv[1:])
 sys.path.insert(0, os.getcwd())
-from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
-from uncertainty_model_tpu_torch.ops.decoder_fused import (
-    assemble, assemble_z, gate_z, se_squeeze)
-from uncertainty_model_tpu_torch.ops.attend import attend
-from uncertainty_model_tpu_torch.ops.pad import reflect_pad
-from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
-from uncertainty_model_tpu_torch.ops.warp_rows import warp_rows_bwd, warp_rows_fwd
+from uncertainty_model_tpu_torch.ops import kernels
 from uncertainty_model_tpu_torch.train import evaluate, trainer
 
-counters = {"assemble_z": assemble_z, "gate_z": gate_z,
-            "se_squeeze": se_squeeze, "assemble": assemble,
-            "gated_conv_elu": gated_conv_elu, "conv_elu": conv_elu,
-            "upsample2x2": upsample2x2, "reflect_pad": reflect_pad,
-            "attend": attend,
-            "warp_rows_fwd": warp_rows_fwd,
-            "warp_rows_bwd": warp_rows_bwd}
 record = {"argv": sys.argv[3:], "steps": [], "evals": []}
 
 
 def recorded(fn, into):
     def wrapper(*args, **kwargs):
-        before = {k: c.launches for k, c in counters.items()}
+        before = kernels.launch_counts()
         out = fn(*args, **kwargs)
         into.append((len(args[1]["left"]),
-                     {k: c.launches - before[k] for k, c in counters.items()}))
+                     {k: n - before[k]
+                      for k, n in kernels.launch_counts().items()}))
         return out
     return wrapper
 
 
 def dump():
-    record["launches"] = {k: c.launches for k, c in counters.items()}
+    record["launches"] = kernels.launch_counts()
     path = os.path.join(os.environ["CHIP_SMOKE_LAUNCH_DIR"],
                         f"{os.getpid()}.json")
     with open(path, "w") as f:
@@ -3846,7 +3807,7 @@ runpy.run_module(module, run_name="__main__", alter_sys=True)
 '''
 
 
-def check_reconstruct_pyramid(counters):
+def check_reconstruct_pyramid():
     """``ops.reconstruct_pyramid`` (the stereo warps without the
     LR-consistency pair) at the flagship's 4 scales, batch ``TRAIN_BATCH``,
     f32, on the card against the same call on the CPU (``RECON_TOL``): one
@@ -3861,11 +3822,10 @@ def check_reconstruct_pyramid(counters):
                         generator=rng) * 0.4 - 0.1 for i in range(4)]
     pyramid = [torch.rand(TRAIN_BATCH, h >> i, w >> i, 6, device="cuda",
                           generator=rng) for i in range(4)]
-    for fn in counters.values():
-        fn.launches = 0
+    hand_kernels.reset_launches()
     got = reconstruct_pyramid(disps, pyramid)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = hand_kernels.launch_counts()
     want = reconstruct_pyramid([d.cpu() for d in disps],
                                [p.cpu() for p in pyramid])
     err = max((g.cpu() - x).abs().max().item() for g, x in zip(got, want))
@@ -4217,7 +4177,7 @@ def profile_device_time(fn, label, top=12):
     ops = sorted(ops, key=lambda op: op["device_ms"], reverse=True)[:top]
     port = [{"kernel": e.key, "device_ms": self_ms(e), "calls": e.count}
             for e in events if e.device_type == DeviceType.CUDA
-            and any(k in e.key for k in PORT_KERNELS)]
+            and hand_kernels.hand_kernel(e.key) is not None]
     kernels = sorted(({"kernel": e.key[:120], "device_ms": self_ms(e),
                        "calls": e.count} for e in events
                       if e.device_type == DeviceType.CUDA),
@@ -5588,25 +5548,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from uncertainty_model_tpu_torch.ops.conv import conv_elu, gated_conv_elu
-    from uncertainty_model_tpu_torch.ops.attend import attend
-    from uncertainty_model_tpu_torch.ops.decoder_fused import (
-        assemble, assemble_z, gate_z, se_squeeze)
-    from uncertainty_model_tpu_torch.ops.pad import reflect_pad
-    from uncertainty_model_tpu_torch.ops.upsample import upsample2x2
-    from uncertainty_model_tpu_torch.ops.warp_rows import (
-        warp_rows_bwd, warp_rows_fwd)
     from uncertainty_model_tpu_torch import parallel
     from uncertainty_model_tpu_torch.bench import card_line
     from uncertainty_model_tpu_torch.serving import make_serving_forward
 
-    serving_counters = {"assemble_z": assemble_z, "gate_z": gate_z,
-                        "se_squeeze": se_squeeze, "assemble": assemble,
-                        "gated_conv_elu": gated_conv_elu,
-                        "conv_elu": conv_elu, "upsample2x2": upsample2x2,
-                        "reflect_pad": reflect_pad, "attend": attend}
-    train_counters = {"warp_rows_fwd": warp_rows_fwd,
-                      "warp_rows_bwd": warp_rows_bwd}
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5618,9 +5563,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     phase("1: build")
-    build_kernels(["assemble_z", "decoder_fused", "gated_conv_elu",
-                   "warp_rows", "upsample2x2", "reflect_pad", "attend",
-                   "stereo_decode"])
+    build_kernels([*hand_kernels.sources(), "stereo_decode"])
 
     phase("2: kernels vs plain versions")
     worst = check_assemble_z()
@@ -5634,76 +5577,71 @@ def main() -> int:
 
     phase("3: serving paths")
     model = flagship_model()
-    launches, forward, x8, ref = run_main_path(model, serving_counters)
+    launches, forward, x8, ref = run_main_path(model)
     s2d_forwards, s2d_launches, s2d_errs = run_paths(
-        model, serving_counters, x8, ref, S2D_PATHS)
+        model, x8, ref, S2D_PATHS)
     option_forwards, option_launches, option_errs = run_paths(
-        model, serving_counters, x8, ref, OPTION_PATHS)
+        model, x8, ref, OPTION_PATHS)
     option_forwards = {k: option_forwards[k] for k in TIMED_OPTION_PATHS}
 
     phase("3a: the measurement tools")
     tools = run_measurement_tools(model, card)
 
     phase("3b: training path")
-    trainer, batch, disp_scale, train_launches = run_training_path(
-        train_counters)
+    trainer, batch, disp_scale, train_launches = run_training_path()
     cpu_check, cpu_f32_grads = check_step_against_cpu(disp_scale)
 
     phase("3c: evaluation and checkpoints")
-    all_counters = {**serving_counters, **train_counters}
-    eval_model, eval_loader, eval_metrics, eval_launches = run_evaluation(
-        all_counters)
+    eval_model, eval_loader, eval_metrics, eval_launches = run_evaluation()
     eval_vs_cpu = check_eval_step_against_cpu()
-    train_model_run = run_train_model_with_checkpoints(train_counters,
-                                                       eval_loader)
-    converted_resume = check_converted_resume(all_counters)
+    train_model_run = run_train_model_with_checkpoints(eval_loader)
+    converted_resume = check_converted_resume()
     torch.cuda.empty_cache()
 
     phase("3d: the training CLI fed by the data pipeline")
     tree = tempfile.TemporaryDirectory()
     write_davinci_tree(tree.name, SEED + 28)
-    cli_run = run_cli_path(all_counters, tree.name, tree.name)
+    cli_run = run_cli_path(tree.name, tree.name)
 
     phase("3e: bf16 mixed-precision training")
     previous = bf16_matmuls()
     bf16_trainer, bf16_batch, _, bf16_launches = run_training_path(
-        all_counters, torch.bfloat16)
+        torch.bfloat16)
     log("  warp_rows at the bf16 step's shapes: the disparities reach the "
         "warps in f32, so its groups are the f32 step's, held in phase 2")
     check_f32_state(bf16_trainer, f"after {TRAIN_STEPS} bf16 steps")
     bf16_vs_cpu = check_bf16_step_against_cpu(disp_scale, cpu_f32_grads)
     del cpu_f32_grads
     bf16_trajectory = check_bf16_trajectory()
-    bf16_cli = run_bf16_cli(all_counters, tree.name,
+    bf16_cli = run_bf16_cli(tree.name,
                             os.path.join(tree.name, "bf16"))
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
         previous)
     torch.cuda.empty_cache()
 
     phase("3f: adversarial training")
-    adv_trainer, adv_batch, adv_launches, adv_losses = run_adversarial_path(
-        all_counters)
+    adv_trainer, adv_batch, adv_launches, adv_losses = run_adversarial_path()
     adv_vs_cpu = check_adversarial_step_against_cpu(disp_scale)
-    adv_cli = run_adversarial_cli(all_counters, tree.name,
+    adv_cli = run_adversarial_cli(tree.name,
                                   os.path.join(tree.name, "adversarial"))
     torch.cuda.empty_cache()
 
     phase("3g: data parallelism (DDP, a world of 1)")
-    parallel_cli = run_parallel_cli(all_counters, tree.name,
+    parallel_cli = run_parallel_cli(tree.name,
                                     os.path.join(tree.name, "parallel"),
                                     cli_run["losses"])
     init_world_of_one()
     ddp_vs_plain = check_ddp_step(disp_scale)
     ddp_trainer, _, _, ddp_launches = run_training_path(
-        all_counters, distributed=True)
+        distributed=True)
     ddp_collectives = count_collectives(ddp_trainer, batch, disp_scale)
-    ddp_adv_trainer, ddp_adv = run_ddp_adversarial(all_counters, disp_scale)
+    ddp_adv_trainer, ddp_adv = run_ddp_adversarial(disp_scale)
     del ddp_adv_trainer
     torch.cuda.empty_cache()
 
     phase("3h: training-mode s2d encoder stages")
     s2d_trainer, s2d_batch, _, s2d_train_launches = run_training_path(
-        all_counters, s2d_stages=S2D_TRAIN_STAGES)
+        s2d_stages=S2D_TRAIN_STAGES)
     s2d_vs_direct = check_s2d_step_against_direct(disp_scale)
     torch.cuda.empty_cache()
 
@@ -5711,7 +5649,7 @@ def main() -> int:
     phase(f"3i: entry points (entry, the bench, dryrun_multichip) on "
           f"{n_cards} card{'s' if n_cards > 1 else ''}")
     entry_check = check_entry(model, x8, ref)
-    bench_check = check_bench_forward(model, serving_counters, x8, ref,
+    bench_check = check_bench_forward(model, x8, ref,
                                       option_launches["smax_nomax"])
     del x8, ref
     dryrun = run_dryrun(n_cards)
@@ -5727,7 +5665,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("3j: reconstruct_pyramid and the launch scripts")
-    recon = check_reconstruct_pyramid(all_counters)
+    recon = check_reconstruct_pyramid()
     scripts = run_launch_scripts(tree.name, os.path.join(tree.name, "scripts"),
                                  cli_run)
     torch.cuda.empty_cache()

@@ -29,8 +29,7 @@ from uncertainty_model_tpu.serving import make_serving_forward as jax_serving
 from uncertainty_model_tpu.train.convert import convert_model_state_dict
 
 from uncertainty_model_tpu_torch.config import FLAGSHIP_MODEL
-from uncertainty_model_tpu_torch.ops import conv as tconv
-from uncertainty_model_tpu_torch.ops import decoder_fused as tdf
+from uncertainty_model_tpu_torch.ops import kernels
 from uncertainty_model_tpu_torch.ops import pad as tpad
 from uncertainty_model_tpu_torch.serving import (
     build_serving_params, make_serving_forward, reflect_conv_inputs)
@@ -203,8 +202,7 @@ def test_bf16_s2d_close_to_jax_bf16(models, pipeline):
     assert np.abs(got - want).max() <= BF16_VS_JAX
 
 
-COUNTED = (tdf.assemble_z, tdf.gate_z, tdf.se_squeeze, tdf.assemble,
-           tconv.gated_conv_elu, tpad.reflect_pad)
+COUNTED = tuple(k.fn for k in kernels.KERNELS)
 
 
 @pytest.mark.parametrize("pipeline", ["gate_fold", "gate_z", "squeeze_first"])

@@ -19,7 +19,7 @@ from torch_port_helpers import images, models as build_models
 import uncertainty_model_tpu.ops.pallas.decoder_fused as jdf
 from uncertainty_model_tpu.serving import make_serving_forward as jax_serving
 
-from uncertainty_model_tpu_torch.ops import decoder_fused as tdf
+from uncertainty_model_tpu_torch.ops import kernels
 from uncertainty_model_tpu_torch.ops.pad import padded_channels
 from uncertainty_model_tpu_torch.serving import make_serving_forward
 
@@ -151,7 +151,7 @@ def test_unfused_after_fused_is_refused(models, fused):
                      fused_stages=fused)
 
 
-COUNTED = (tdf.assemble_z, tdf.gate_z, tdf.se_squeeze, tdf.assemble)
+COUNTED = tuple(k.fn for k in kernels.KERNELS)
 
 
 def test_cpu_forward_of_every_fused_set_launches_no_kernel(models):

@@ -22,15 +22,13 @@ token.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
-from .. import _build
 from ..models.layers import SMAX, softmax
-from ..utils.scopes import note_kernel, uncounted
+from . import hand
 
 THREADS = 256          # a block's threads (``csrc/attend.cu::kThreads``)
 HEAD_DIMS = (4, 8, 16, 32, 64)   # the head widths the kernel is built for
@@ -39,8 +37,6 @@ BLOCKS_PER_SM = 16     # blocks a launch aims at, per SM
 LANE_TOKENS = 8        # the fewest tokens a lane of a block takes
 PARTIAL_BYTES = 4 << 20   # the chunks' partials stay within this, or an
                           # eighth of the keys' and values' bf16 bytes
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attend_plain(keys, queries, values, heads, smax, keys_smax=None):
@@ -111,17 +107,6 @@ def plan_attend(batch: int, tokens: int, heads: int, d: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("attend")
-    lib.umt_attend_work.argtypes = [ctypes.c_int] * 6
-    lib.umt_attend_work.restype = ctypes.c_longlong
-    lib.umt_attend.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-                               + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.umt_attend.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -149,45 +134,35 @@ def attend(keys: torch.Tensor, queries: torch.Tensor, values: torch.Tensor,
         raise ValueError(f"attend: softmax formulations {keys_smax!r}, "
                          f"{smax!r} not in {SMAX}")
     d = c // heads
-    flops = 4 * b * n * heads * d * d
-    if keys.device.type == "cpu":
-        with uncounted():
-            out = attend_plain(keys, queries, values, heads, smax, keys_smax)
-        note_kernel("attend", operands, (out,), flops)
-        return out
-    if keys.device.type != "cuda":
-        raise RuntimeError(f"attend has no kernel for {keys.device}")
-    if keys.dtype not in _DTYPE_CODES:
-        raise TypeError(f"attend kernel takes float32 or bfloat16, not "
-                        f"{keys.dtype}")
-    if any(t.dtype != keys.dtype or t.device != keys.device
-           for t in operands):
-        raise TypeError("attend: keys, queries and values differ in type or "
-                        "device")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in operands):
-        raise ValueError("attend takes contiguous, 16-byte aligned tensors")
+    return hand.run(
+        attend, operands,
+        lambda: attend_plain(keys, queries, values, heads, smax, keys_smax),
+        lambda: _attend_kernel(keys, queries, values, heads, smax,
+                               keys_smax),
+        flops=4 * b * n * heads * d * d)
+
+
+def _attend_kernel(keys, queries, values, heads, smax, keys_smax):
+    code = hand.check("attend", {"keys": keys, "queries": queries,
+                                 "values": values}, aligned=True)
+    b, n, c = keys.shape
+    d = c // heads
     if d not in HEAD_DIMS:
         raise ValueError(f"attend kernel takes heads of {HEAD_DIMS} "
                          f"channels, not {d}")
     plan = plan_attend(b, n, heads, d, _sms(keys.device.index))
-    lib = _library()
-    floats = lib.umt_attend_work(b, n, heads, d, plan.group, plan.chunk)
+    floats = hand.c_function("umt_attend_work")(b, n, heads, d, plan.group,
+                                                plan.chunk)
     if floats < 0:
         raise ValueError(f"attend: the kernel refuses {plan} for "
                          f"{tuple(keys.shape)}, {heads} heads")
     work = torch.empty(floats, dtype=torch.float32, device=keys.device)
     out = torch.empty_like(keys)
-    with torch.cuda.device(keys.device):
-        err = lib.umt_attend(
-            _DTYPE_CODES[keys.dtype], keys_smax != "nomax", smax != "nomax",
-            keys.data_ptr(), queries.data_ptr(), values.data_ptr(),
-            out.data_ptr(), work.data_ptr(), b, n, heads, d, plan.group,
-            plan.chunk, plan.block,
-            torch.cuda.current_stream(keys.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"attend kernel launch failed: CUDA error {err}")
-    attend.launches += 1
-    note_kernel("attend", operands, (out,), flops)
+    hand.launch(attend, "umt_attend", keys.device, code,
+                keys_smax != "nomax", smax != "nomax", keys.data_ptr(),
+                queries.data_ptr(), values.data_ptr(), out.data_ptr(),
+                work.data_ptr(), b, n, heads, d, plan.group, plan.chunk,
+                plan.block)
     return out
 
 

@@ -15,16 +15,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import weakref
 
 import torch
 import torch.nn.functional as F
 
-from .. import _build
-from ..utils.scopes import note_kernel, uncounted
+from . import hand
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 16}  # the kernel's tiles
 _SMEM_LIMIT = 232448  # shared memory a block may use on the card
 _MAX_INPUTS = 4
@@ -238,66 +235,35 @@ def _packed_weights(w, plan):
     return packed
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("gated_conv_elu")
-    fn = lib.umt_gated_conv_elu
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    lib.umt_conv_elu.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                                 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
-    lib.umt_conv_elu.restype = ctypes.c_int
-    return lib
-
-
 def _kernel_operands(name, xs, w, b, h, width, c, co, k, gated):
     """Check the CUDA operands both modes share and plan the launch; return
     (dtype code, the kernel's weights, the f32 bias, the plan as seven C
-    ints, the library)."""
-    dt = xs[0].dtype
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"{name} kernel takes float32 or bfloat16, not {dt}")
+    ints)."""
+    code = hand.check(name, {**{f"xs[{i}]": x for i, x in enumerate(xs)},
+                             "w": w}, aligned=True)
     b = b.float().contiguous()
-    for t in [*xs, w, b]:
-        if t.device != xs[0].device:
-            raise ValueError(f"{name} operands must share one device")
-    for t in [*xs, w]:
-        if t.dtype != dt:
-            raise TypeError(f"{name} operands must share one dtype")
-    for t in [*xs, w, b]:
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} takes contiguous, 16-byte aligned "
-                             "tensors")
-    plan = plan_conv(name, dt, h, width, c, co, k, len(xs) if gated else 0)
-    if dt == torch.bfloat16:
+    hand.check(name, {"b": b}, aligned=True, dtypes=hand.F32)
+    plan = plan_conv(name, w.dtype, h, width, c, co, k,
+                     len(xs) if gated else 0)
+    if w.dtype == torch.bfloat16:
         w = _packed_weights(w, plan)
     fields = (ctypes.c_int * 7)(*dataclasses.astuple(plan))
-    return _DTYPE_CODES[dt], w, b, fields, _library()
+    return code, w, b, fields
 
 
-def _gated_conv_elu_cuda(xs, gates, w, b, dims):
+def _gated_conv_elu_kernel(xs, gates, w, b, dims):
     n, batch, h, wp, width, c, co, k = dims
-    code, w, b, plan, lib = _kernel_operands("gated_conv_elu", xs, w, b, h,
-                                             width, c, co, k, gated=True)
+    code, w, b, plan = _kernel_operands("gated_conv_elu", xs, w, b, h, width,
+                                        c, co, k, gated=True)
     dev = xs[0].device
-    if gates.device != dev:
-        raise ValueError("gated_conv_elu operands must share one device")
     gates = gates.to(dtype=xs[0].dtype).contiguous()
     out = torch.empty((batch, h, width, co), dtype=xs[0].dtype, device=dev)
     ptrs = (ctypes.c_void_p * _MAX_INPUTS)(
         *[x.data_ptr() for x in xs], *([None] * (_MAX_INPUTS - n)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.umt_gated_conv_elu(
-            code, ctypes.cast(ptrs, ctypes.c_void_p),
-            gates.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            n, batch, h, wp, width, c, co, k, ctypes.cast(plan, ctypes.c_void_p),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"gated_conv_elu kernel launch failed: CUDA error "
-                           f"{err}")
-    gated_conv_elu.launches += 1
+    hand.launch(gated_conv_elu, "umt_gated_conv_elu", dev, code,
+                ctypes.cast(ptrs, ctypes.c_void_p), gates.data_ptr(),
+                w.data_ptr(), b.data_ptr(), out.data_ptr(), n, batch, h, wp,
+                width, c, co, k, ctypes.cast(plan, ctypes.c_void_p))
     return out
 
 
@@ -321,17 +287,11 @@ def gated_conv_elu(xs, gates, w, b, width=None):
     in ``gated_conv_elu.launches``) or raise.
     """
     dims = _shapes(xs, gates, w, b, width)
-    if xs[0].device.type == "cpu":
-        with uncounted():
-            out = gated_conv_elu_plain(xs, gates, w, b, width)
-    elif xs[0].device.type != "cuda":
-        raise RuntimeError(f"gated_conv_elu has no kernel for {xs[0].device}")
-    else:
-        out = _gated_conv_elu_cuda(xs, gates, w, b, dims)
-    _, batch, h, _, width, c, co, k = dims
-    note_kernel("gated_conv_elu", (*xs, gates, w, b), (out,),
-                flops=_conv_flops(batch, h, width, c, co, k))
-    return out
+    _, batch, h, _, out_w, c, co, k = dims
+    return hand.run(gated_conv_elu, (*xs, gates, w, b),
+                    lambda: gated_conv_elu_plain(xs, gates, w, b, width),
+                    lambda: _gated_conv_elu_kernel(xs, gates, w, b, dims),
+                    flops=_conv_flops(batch, h, out_w, c, co, k))
 
 
 def conv_elu(x, w, b):
@@ -342,27 +302,20 @@ def conv_elu(x, w, b):
     ungated mode, which zero-fills the pad while staging (counted in
     ``conv_elu.launches``), or raise.
     """
-    batch, h, width, c, co, k = _conv_elu_shapes(x, w, b)
-    operands, flops = (x, w, b), _conv_flops(batch, h, width, c, co, k)
-    if x.device.type == "cpu":
-        with uncounted():
-            out = conv_elu_plain(x, w, b)
-        note_kernel("conv_elu", operands, (out,), flops=flops)
-        return out
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv_elu has no kernel for {x.device}")
-    code, w, b, plan, lib = _kernel_operands("conv_elu", [x], w, b, h, width,
-                                             c, co, k, gated=False)
+    dims = _conv_elu_shapes(x, w, b)
+    return hand.run(conv_elu, (x, w, b), lambda: conv_elu_plain(x, w, b),
+                    lambda: _conv_elu_kernel(x, w, b, dims),
+                    flops=_conv_flops(*dims))
+
+
+def _conv_elu_kernel(x, w, b, dims):
+    batch, h, width, c, co, k = dims
+    code, w, b, plan = _kernel_operands("conv_elu", [x], w, b, h, width, c,
+                                        co, k, gated=False)
     out = torch.empty((batch, h, width, co), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.umt_conv_elu(code, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                               out.data_ptr(), batch, h, width, c, co, k,
-                               ctypes.cast(plan, ctypes.c_void_p), stream)
-    if err != 0:
-        raise RuntimeError(f"conv_elu kernel launch failed: CUDA error {err}")
-    conv_elu.launches += 1
-    note_kernel("conv_elu", operands, (out,), flops=flops)
+    hand.launch(conv_elu, "umt_conv_elu", x.device, code, x.data_ptr(),
+                w.data_ptr(), b.data_ptr(), out.data_ptr(), batch, h, width,
+                c, co, k, ctypes.cast(plan, ctypes.c_void_p))
     return out
 
 

@@ -19,7 +19,6 @@ alone, so that the CPU tests reach them.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -27,13 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _build
+from . import hand
 from .resize import (bf16_weights, lerp_taps, resize_bf16_weights,
                      resize_bilinear)
 from .shuffle import shuffle_phase_major
-from ..utils.scopes import note_kernel, uncounted
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CSO = 1024  # a row block of one channel a thread holds Cso threads
 
 
@@ -333,47 +330,17 @@ def _tap_tables(h: int, w: int, dtype: torch.dtype, device: torch.device):
     return torch.from_numpy(tap_table(h, w, dtype == torch.bfloat16)).to(device)
 
 
-@functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu``'s library with its functions' C signatures."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    signatures = {
-        "assemble_z": {"umt_assemble_z": [i32] + [ptr] * 11 + [i32] * 12},
-        "decoder_fused": {
-            "umt_gate_z": [i32, ptr, ptr] + [i32] * 4,
-            "umt_se_squeeze": [i32] + [ptr] * 8 + [i32] * 10,
-            "umt_assemble": [i32] + [ptr] * 9 + [i32] * 12,
-        },
-    }
-    lib = _build.load(name)
-    for fn_name, args in signatures[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = args + [ptr]  # the stream
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check_cuda(name, tensors, floats, cso):
-    """The kernels' operand rules: one CUDA device; ``tensors`` contiguous
-    and of one storage type, float32 or bfloat16; ``floats`` f32 (made so
-    here); Cso within a block.  Returns (dtype code, the f32 tensors)."""
-    dt = tensors[0].dtype
-    dev = tensors[0].device
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"{name} kernel takes float32 or bfloat16, not {dt}")
-    for t in tensors + [t for t in floats if t is not None]:
-        if t.device != dev:
-            raise ValueError(f"{name} operands must share one device")
-    for t in tensors:
-        if t.dtype != dt:
-            raise TypeError(f"{name} operands must share one dtype")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous NHWC tensors")
+def _kernel_operands(name, tensors, floats, cso):
+    """The glue kernels' CUDA operands: ``tensors`` ({name: tensor or
+    None}) by ``hand.check``, unaligned ones too (the kernels copy them in
+    narrower pieces); Cso within a block; ``floats`` made f32.  Returns
+    (dtype code, the f32 tensors)."""
+    code = hand.check(name, tensors)
     if cso > _MAX_CSO:
         raise ValueError(f"{name} kernel takes at most {_MAX_CSO} z channels, "
                          f"not {cso}")
-    floats = [None if t is None else t.float().contiguous() for t in floats]
-    return _DTYPE_CODES[dt], floats
+    return code, [None if t is None else t.float().contiguous()
+                  for t in floats]
 
 
 def _ptr(t):
@@ -385,25 +352,6 @@ def _row_plan(mode, h, w, cso, cu, cd, cf, se_fm, skip_h):
                      se_fm.data_ptr() % 16 == 0)
     return plan, (plan.cols, plan.halo_cols, plan.threads, plan.vec,
                   plan.smem)
-
-
-def _launch(name, fn_name, dev, *args):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_library(name), fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name[4:]} kernel launch failed: CUDA error "
-                           f"{err}")
-
-
-def _on_cuda(name, t):
-    """True for a CUDA tensor, False for a CPU one (the plain version runs);
-    anything else raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise RuntimeError(f"{name} has no kernel for {t.device}")
-    return True
 
 
 def assemble_z(se_fm, skip_h, xc, disp_h, bias, k_fm=None):
@@ -420,16 +368,20 @@ def assemble_z(se_fm, skip_h, xc, disp_h, bias, k_fm=None):
     folded in f32.  CPU tensors run the plain version; CUDA tensors launch
     the kernel (and count the launch in ``assemble_z.launches``) or raise.
     """
-    b, h, w, cso, cu, cd, cf = _shapes(se_fm, skip_h, xc, disp_h, bias, k_fm)
-    operands = (se_fm, k_fm, skip_h, xc, disp_h, bias)
-    if not _on_cuda("assemble_z", se_fm):
-        with uncounted():
-            cat, mean = assemble_z_plain(se_fm, skip_h, xc, disp_h, bias, k_fm)
-        note_kernel("assemble_z", operands, (cat, mean))
-        return cat, mean
-    code, (bias32, kfm32) = _check_cuda(
-        "assemble_z", [t for t in (se_fm, skip_h, xc, disp_h) if t is not None],
-        [bias, k_fm], cso)
+    dims = _shapes(se_fm, skip_h, xc, disp_h, bias, k_fm)
+    return hand.run(
+        assemble_z, (se_fm, k_fm, skip_h, xc, disp_h, bias),
+        lambda: assemble_z_plain(se_fm, skip_h, xc, disp_h, bias, k_fm),
+        lambda: _assemble_z_kernel(se_fm, skip_h, xc, disp_h, bias, k_fm,
+                                   dims),
+        outputs=tuple)
+
+
+def _assemble_z_kernel(se_fm, skip_h, xc, disp_h, bias, k_fm, dims):
+    b, h, w, cso, cu, cd, cf = dims
+    code, (bias32, kfm32) = _kernel_operands(
+        "assemble_z", {"se_fm": se_fm, "skip_h": skip_h, "xc": xc,
+                       "disp_h": disp_h}, [bias, k_fm], cso)
     dev = se_fm.device
     plan, plan_args = _row_plan("assemble_z", h, w, cso, cu, cd, cf, se_fm,
                                 skip_h)
@@ -439,13 +391,11 @@ def assemble_z(se_fm, skip_h, xc, disp_h, bias, k_fm=None):
                           device=dev)
     mean = torch.empty((b, cso), dtype=torch.float32, device=dev)
     count = torch.zeros(b, dtype=torch.int32, device=dev)
-    _launch("assemble_z", "umt_assemble_z", dev, code, se_fm.data_ptr(),
-            _ptr(kfm32), skip_h.data_ptr(), xc.data_ptr(), _ptr(disp_h),
-            bias32.data_ptr(), taps.data_ptr(), cat.data_ptr(),
-            partial.data_ptr(), mean.data_ptr(), count.data_ptr(),
-            b, h, w, cso, cu, cd, cf, *plan_args)
-    assemble_z.launches += 1
-    note_kernel("assemble_z", operands, (cat, mean))
+    hand.launch(assemble_z, "umt_assemble_z", dev, code, se_fm.data_ptr(),
+                _ptr(kfm32), skip_h.data_ptr(), xc.data_ptr(), _ptr(disp_h),
+                bias32.data_ptr(), taps.data_ptr(), cat.data_ptr(),
+                partial.data_ptr(), mean.data_ptr(), count.data_ptr(),
+                b, h, w, cso, cu, cd, cf, *plan_args)
     return cat, mean
 
 
@@ -461,20 +411,19 @@ def gate_z(cat, gates, cso):
         raise ValueError(f"gates {tuple(gates.shape)} are not "
                          f"({cat.shape[0]}, {cso})")
     z = cat[..., :cso]   # read and written: counted on both sides
-    operands = (z, gates)
-    if not _on_cuda("gate_z", cat):
-        with uncounted():
-            cat = gate_z_plain(cat, gates, cso)
-        note_kernel("gate_z", operands, (z,))
-        return cat
+    return hand.run(gate_z, (z, gates), lambda: gate_z_plain(cat, gates, cso),
+                    lambda: _gate_z_kernel(cat, gates, cso),
+                    outputs=lambda _: (z,))
+
+
+def _gate_z_kernel(cat, gates, cso):
     gates = gates.to(dtype=cat.dtype).contiguous()
-    code, _ = _check_cuda("gate_z", [cat, gates], [], cso)
+    code, _ = _kernel_operands("gate_z", {"cat": cat, "gates": gates}, [],
+                               cso)
     b, h, w, ccat = cat.shape
     plan_gate_z(b, h, w, ccat, cat.element_size())   # the shape checks
-    _launch("decoder_fused", "umt_gate_z", cat.device, code, cat.data_ptr(),
-            gates.data_ptr(), b, h * w * ccat, ccat, cso)
-    gate_z.launches += 1
-    note_kernel("gate_z", operands, (z,))
+    hand.launch(gate_z, "umt_gate_z", cat.device, code, cat.data_ptr(),
+                gates.data_ptr(), b, h * w * ccat, ccat, cso)
     return cat
 
 
@@ -484,15 +433,17 @@ def se_squeeze(se_fm, skip_h, bias, k_fm=None):
     ``assemble_z``).  CPU tensors run the plain version; CUDA tensors launch
     the kernel (and count the launch in ``se_squeeze.launches``) or
     raise."""
-    b, h, w, cso, _, _, cf = _shapes(se_fm, skip_h, None, None, bias, k_fm)
-    operands = (se_fm, k_fm, skip_h, bias)
-    if not _on_cuda("se_squeeze", se_fm):
-        with uncounted():
-            mean = se_squeeze_plain(se_fm, skip_h, bias, k_fm)
-        note_kernel("se_squeeze", operands, (mean,))
-        return mean
-    code, (bias32, kfm32) = _check_cuda("se_squeeze", [se_fm, skip_h],
-                                        [bias, k_fm], cso)
+    dims = _shapes(se_fm, skip_h, None, None, bias, k_fm)
+    return hand.run(
+        se_squeeze, (se_fm, k_fm, skip_h, bias),
+        lambda: se_squeeze_plain(se_fm, skip_h, bias, k_fm),
+        lambda: _se_squeeze_kernel(se_fm, skip_h, bias, k_fm, dims))
+
+
+def _se_squeeze_kernel(se_fm, skip_h, bias, k_fm, dims):
+    b, h, w, cso, _, _, cf = dims
+    code, (bias32, kfm32) = _kernel_operands(
+        "se_squeeze", {"se_fm": se_fm, "skip_h": skip_h}, [bias, k_fm], cso)
     dev = se_fm.device
     plan, plan_args = _row_plan("se_squeeze", h, w, cso, 0, 0, cf, se_fm,
                                 skip_h)
@@ -501,12 +452,10 @@ def se_squeeze(se_fm, skip_h, bias, k_fm=None):
                           device=dev)
     mean = torch.empty((b, cso), dtype=torch.float32, device=dev)
     count = torch.zeros(b, dtype=torch.int32, device=dev)
-    _launch("decoder_fused", "umt_se_squeeze", dev, code, se_fm.data_ptr(),
-            _ptr(kfm32), skip_h.data_ptr(), bias32.data_ptr(), taps.data_ptr(),
-            partial.data_ptr(), mean.data_ptr(), count.data_ptr(),
-            b, h, w, cso, cf, *plan_args)
-    se_squeeze.launches += 1
-    note_kernel("se_squeeze", operands, (mean,))
+    hand.launch(se_squeeze, "umt_se_squeeze", dev, code, se_fm.data_ptr(),
+                _ptr(kfm32), skip_h.data_ptr(), bias32.data_ptr(),
+                taps.data_ptr(), partial.data_ptr(), mean.data_ptr(),
+                count.data_ptr(), b, h, w, cso, cf, *plan_args)
     return mean
 
 
@@ -521,28 +470,29 @@ def assemble(se_fm, skip_h, gates, xc, disp_h, bias, k_fm=None):
     ``gates`` (B, Cso) in the working type; the rest as ``assemble_z``.
     CPU tensors run the plain version; CUDA tensors launch the kernel (and
     count the launch in ``assemble.launches``) or raise."""
-    b, h, w, cso, cu, cd, cf = _shapes(se_fm, skip_h, xc, disp_h, bias, k_fm,
-                                       gates)
-    operands = (se_fm, k_fm, skip_h, gates, xc, disp_h, bias)
-    if not _on_cuda("assemble", se_fm):
-        with uncounted():
-            cat = assemble_plain(se_fm, skip_h, gates, xc, disp_h, bias, k_fm)
-        note_kernel("assemble", operands, (cat,))
-        return cat
+    dims = _shapes(se_fm, skip_h, xc, disp_h, bias, k_fm, gates)
+    return hand.run(
+        assemble, (se_fm, k_fm, skip_h, gates, xc, disp_h, bias),
+        lambda: assemble_plain(se_fm, skip_h, gates, xc, disp_h, bias, k_fm),
+        lambda: _assemble_kernel(se_fm, skip_h, gates, xc, disp_h, bias,
+                                 k_fm, dims))
+
+
+def _assemble_kernel(se_fm, skip_h, gates, xc, disp_h, bias, k_fm, dims):
+    b, h, w, cso, cu, cd, cf = dims
     gates = gates.to(dtype=skip_h.dtype).contiguous()
-    code, (bias32, kfm32) = _check_cuda(
-        "assemble", [t for t in (se_fm, skip_h, gates, xc, disp_h)
-                     if t is not None], [bias, k_fm], cso)
+    code, (bias32, kfm32) = _kernel_operands(
+        "assemble", {"se_fm": se_fm, "skip_h": skip_h, "gates": gates,
+                     "xc": xc, "disp_h": disp_h}, [bias, k_fm], cso)
     dev = se_fm.device
     _, plan_args = _row_plan("assemble", h, w, cso, cu, cd, cf, se_fm, skip_h)
     taps = _tap_tables(h, w, skip_h.dtype, dev)
     cat = torch.empty((b, h, w, cso + cu + cd), dtype=skip_h.dtype, device=dev)
-    _launch("decoder_fused", "umt_assemble", dev, code, se_fm.data_ptr(),
-            _ptr(kfm32), skip_h.data_ptr(), gates.data_ptr(), xc.data_ptr(),
-            _ptr(disp_h), bias32.data_ptr(), taps.data_ptr(), cat.data_ptr(),
-            b, h, w, cso, cu, cd, cf, *plan_args)
-    assemble.launches += 1
-    note_kernel("assemble", operands, (cat,))
+    hand.launch(assemble, "umt_assemble", dev, code, se_fm.data_ptr(),
+                _ptr(kfm32), skip_h.data_ptr(), gates.data_ptr(),
+                xc.data_ptr(), _ptr(disp_h), bias32.data_ptr(),
+                taps.data_ptr(), cat.data_ptr(), b, h, w, cso, cu, cd, cf,
+                *plan_args)
     return cat
 
 

@@ -21,15 +21,13 @@ it launches the hand-written kernel ``csrc/reflect_pad.cu`` (counted in
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import _build
-from ..utils.scopes import note_kernel, uncounted
+from . import hand
 
 _MODES = {"zeros": "constant", "replicate": "replicate", "reflect": "reflect"}
 
@@ -64,7 +62,6 @@ def pad2d(x: torch.Tensor, padding: tuple[int, int, int, int],
 
 
 CHANNEL_MULTIPLE = 8
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def padded_channels(c: int) -> int:
@@ -86,15 +83,6 @@ def reflect_pad_plain(x: torch.Tensor,
     return F.pad(out, (0, padded_channels(c) - c))
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("reflect_pad")
-    lib.umt_reflect_pad.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.umt_reflect_pad.restype = ctypes.c_int
-    return lib
-
-
 def reflect_pad(x: torch.Tensor,
                 scale: torch.Tensor | None = None) -> torch.Tensor:
     """The input of a reflect(1)-padded 3x3 conv, NHWC ``x`` (B, H, W, C)
@@ -110,41 +98,22 @@ def reflect_pad(x: torch.Tensor,
     if scale is not None and tuple(scale.shape) != (b, c):
         raise ValueError(f"reflect_pad: scale {tuple(scale.shape)} is not "
                          f"(B, C) = {(b, c)}")
-    operands = (x, scale)
-    if x.device.type == "cpu":
-        with uncounted():
-            out = reflect_pad_plain(x, scale)
-        note_kernel("reflect_pad", operands, (out,))
-        return out
-    if x.device.type != "cuda":
-        raise RuntimeError(f"reflect_pad has no kernel for {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"reflect_pad kernel takes float32 or bfloat16, not "
-                        f"{x.dtype}")
-    if scale is not None and (scale.dtype != x.dtype
-                              or scale.device != x.device):
-        raise TypeError(f"reflect_pad: scale is {scale.dtype} on "
-                        f"{scale.device}, x {x.dtype} on {x.device}")
-    if any(t is not None and (not t.is_contiguous() or t.data_ptr() % 16)
-           for t in operands):
-        raise ValueError("reflect_pad takes contiguous, 16-byte aligned "
-                         "tensors")
+    return hand.run(reflect_pad, (x, scale),
+                    lambda: reflect_pad_plain(x, scale),
+                    lambda: _reflect_pad_kernel(x, scale))
+
+
+def _reflect_pad_kernel(x, scale):
+    code = hand.check("reflect_pad", {"x": x, "scale": scale}, aligned=True)
+    b, h, w, c = x.shape
     if b * (h + 2) >= 2 ** 31:
         raise ValueError(f"reflect_pad: {b * (h + 2)} padded rows exceed "
                          "the kernel's grid")
     out = torch.empty((b, h + 2, w + 2, padded_channels(c)), dtype=x.dtype,
                       device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().umt_reflect_pad(
-            _DTYPE_CODES[x.dtype], x.data_ptr(),
-            None if scale is None else scale.data_ptr(), out.data_ptr(),
-            b, h, w, c, out.shape[-1],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"reflect_pad kernel launch failed: CUDA error "
-                           f"{err}")
-    reflect_pad.launches += 1
-    note_kernel("reflect_pad", operands, (out,))
+    hand.launch(reflect_pad, "umt_reflect_pad", x.device, code, x.data_ptr(),
+                None if scale is None else scale.data_ptr(), out.data_ptr(),
+                b, h, w, c, out.shape[-1])
     return out
 
 

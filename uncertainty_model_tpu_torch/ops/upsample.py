@@ -12,17 +12,13 @@ port calls it, as no path of the JAX package calls its kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from .. import _build
+from . import hand
 from .resize import _lerp_coeffs
-from ..utils.scopes import note_kernel, uncounted
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,15 +64,6 @@ def upsample2x2_plain(x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("upsample2x2")
-    lib.umt_upsample2x2.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    lib.umt_upsample2x2.restype = ctypes.c_int
-    return lib
-
-
 def upsample2x2(x: torch.Tensor) -> torch.Tensor:
     """Exact 2x align-corners bilinear upsample of NHWC ``x`` (B, H, W, C)
     -> (B, 2H, 2W, C), any H, W >= 1.  CPU tensors run the plain version;
@@ -85,32 +72,18 @@ def upsample2x2(x: torch.Tensor) -> torch.Tensor:
     if x.ndim != 4 or min(x.shape) < 1:
         raise ValueError(f"upsample2x2 takes a non-empty NHWC tensor, not "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
-        with uncounted():
-            out = upsample2x2_plain(x)
-        note_kernel("upsample2x2", (x,), (out,))
-        return out
-    if x.device.type != "cuda":
-        raise RuntimeError(f"upsample2x2 has no kernel for {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"upsample2x2 kernel takes float32 or bfloat16, not "
-                        f"{x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("upsample2x2 takes a contiguous, 16-byte aligned "
-                         "tensor")
+    return hand.run(upsample2x2, (x,), lambda: upsample2x2_plain(x),
+                    lambda: _upsample2x2_kernel(x))
+
+
+def _upsample2x2_kernel(x):
+    code = hand.check("upsample2x2", {"x": x}, aligned=True)
     b, h, w, c = x.shape
     col, lo, hi, rows = _device_taps(h, w, x.device)
     out = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _library().umt_upsample2x2(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), out.data_ptr(),
-            col.data_ptr(), lo.data_ptr(), hi.data_ptr(), rows.data_ptr(),
-            b, h, w, c, torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"upsample2x2 kernel launch failed: CUDA error "
-                           f"{err}")
-    upsample2x2.launches += 1
-    note_kernel("upsample2x2", (x,), (out,))
+    hand.launch(upsample2x2, "umt_upsample2x2", x.device, code, x.data_ptr(),
+                out.data_ptr(), col.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                rows.data_ptr(), b, h, w, c)
     return out
 
 

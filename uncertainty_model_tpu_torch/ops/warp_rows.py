@@ -18,13 +18,10 @@ kernels against on the card.
 from __future__ import annotations
 
 import array
-import ctypes
-import functools
 
 import torch
 
-from .. import _build
-from ..utils.scopes import note_kernel, uncounted
+from . import hand
 
 # the backward kernel holds a row's dsrc (W * C f32) in one block's shared
 # memory
@@ -87,11 +84,9 @@ def _check(x: torch.Tensor, src: torch.Tensor, dout=None) -> None:
                          f"{tuple(src.shape)}")
 
 
-def _check_group(xs, srcs, douts=None) -> bool:
-    """Check a group's shapes (each problem as :func:`_check`, one C for
-    all), devices, dtypes and layouts; True where every operand lies on the
-    CPU (the plain versions), False where the kernels take them (f32,
-    contiguous, one CUDA device)."""
+def _check_group(xs, srcs, douts=None) -> None:
+    """Check a group's shapes: each problem as :func:`_check`, one C for
+    all."""
     if not srcs or len(xs) != len(srcs) or (
             douts is not None and len(douts) != len(srcs)):
         raise ValueError(f"a warp_rows group takes as many x as src (and "
@@ -101,45 +96,14 @@ def _check_group(xs, srcs, douts=None) -> bool:
     if len({src.shape[2] for src in srcs}) != 1:
         raise ValueError(f"a warp_rows group shares one C, not "
                          f"{sorted({src.shape[2] for src in srcs})}")
-    tensors = [*xs, *srcs, *(douts or ())]
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("warp_rows operands must share one device")
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise RuntimeError(f"warp_rows has no kernel for {dev}")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"warp_rows kernels take float32, not {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("warp_rows kernels take contiguous tensors")
-    return False
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load("warp_rows")
-    for fn in (lib.umt_warp_rows_fwd, lib.umt_warp_rows_bwd):
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _launch(direction: str, problems, c: int) -> None:
-    """Launch the ``direction`` kernel ("fwd" or "bwd") on ``problems``,
-    tuples ``(x, src, dout, out, dx)`` (None where a direction does not use
-    one), ``_MAX_PROBLEMS`` a launch; empty problems are left out.  Each
-    launch adds one to the direction's counter."""
+def _launch(fn, c_function, problems, c: int) -> None:
+    """Launch ``fn``'s kernel, the C function ``c_function``, on
+    ``problems``, tuples ``(x, src, dout, out, dx)`` (None where a
+    direction does not use one), ``_MAX_PROBLEMS`` a launch; empty
+    problems are left out."""
     problems = [p for p in problems if p[1].numel()]
-    if not problems:
-        return
-    dev = problems[0][0].device
-    fn, counted = ((_library().umt_warp_rows_fwd, warp_rows_fwd)
-                   if direction == "fwd" else
-                   (_library().umt_warp_rows_bwd, warp_rows_bwd))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for i in range(0, len(problems), _MAX_PROBLEMS):
         chunk = problems[i:i + _MAX_PROBLEMS]
         entries = []
@@ -147,27 +111,34 @@ def _launch(direction: str, problems, c: int) -> None:
             entries += [0 if t is None else t.data_ptr() for t in (x, *rest)]
             entries += x.shape
         table = array.array("q", entries)  # int64, alive through the call
-        with torch.cuda.device(dev):
-            err = fn(len(chunk), table.buffer_info()[0], c, stream)
-        if err != 0:
-            raise RuntimeError(f"warp_rows {direction} launch failed: CUDA "
-                               f"error {err}")
-        counted.launches += 1
+        hand.launch(fn, c_function, chunk[0][0].device, len(chunk),
+                    table.buffer_info()[0], c)
+
+
+def _check_kernel_operands(fn, **groups) -> None:
+    """The kernels' operand rule (float32, contiguous) for ``groups`` of
+    tensors by name."""
+    hand.check(fn.__name__, {f"{name}[{i}]": t for name, ts in groups.items()
+                             for i, t in enumerate(ts)}, dtypes=hand.F32)
 
 
 def warp_rows_fwd_many(xs, srcs) -> list:
     """The forward of :func:`warp_rows_many` without autograd: the plain
     version problem by problem on CPU tensors, one kernel launch for the
     group on CUDA tensors (or raise)."""
-    if _check_group(xs, srcs):
-        with uncounted():
-            outs = [warp_rows_plain(x, src) for x, src in zip(xs, srcs)]
-    else:
-        outs = [torch.empty_like(src) for src in srcs]
-        _launch("fwd", [(x, src, None, out, None)
-                        for x, src, out in zip(xs, srcs, outs)],
-                srcs[0].shape[2])
-    note_kernel("warp_rows_fwd", (*xs, *srcs), outs)
+    _check_group(xs, srcs)
+    return hand.run(
+        warp_rows_fwd, (*xs, *srcs),
+        lambda: [warp_rows_plain(x, src) for x, src in zip(xs, srcs)],
+        lambda: _warp_rows_fwd_kernel(xs, srcs), outputs=tuple)
+
+
+def _warp_rows_fwd_kernel(xs, srcs):
+    _check_kernel_operands(warp_rows_fwd, xs=xs, srcs=srcs)
+    outs = [torch.empty_like(src) for src in srcs]
+    _launch(warp_rows_fwd, "umt_warp_rows_fwd",
+            [(x, src, None, out, None) for x, src, out in zip(xs, srcs, outs)],
+            srcs[0].shape[2])
     return outs
 
 
@@ -175,12 +146,20 @@ def warp_rows_bwd_many(xs, srcs, douts):
     """``(dxs, dsrcs)`` of :func:`warp_rows_many` for the cotangents
     ``douts``: the plain version problem by problem on CPU tensors, one
     kernel launch for the group on CUDA tensors (or raise)."""
-    if _check_group(xs, srcs, douts):
-        with uncounted():
-            grads = [warp_rows_bwd_plain(*p) for p in zip(xs, srcs, douts)]
-        dxs, dsrcs = [g[0] for g in grads], [g[1] for g in grads]
-        note_kernel("warp_rows_bwd", (*xs, *srcs, *douts), (*dxs, *dsrcs))
-        return dxs, dsrcs
+    _check_group(xs, srcs, douts)
+    return hand.run(warp_rows_bwd, (*xs, *srcs, *douts),
+                    lambda: _warp_rows_bwd_plain(xs, srcs, douts),
+                    lambda: _warp_rows_bwd_kernel(xs, srcs, douts),
+                    outputs=lambda grads: (*grads[0], *grads[1]))
+
+
+def _warp_rows_bwd_plain(xs, srcs, douts):
+    grads = [warp_rows_bwd_plain(*p) for p in zip(xs, srcs, douts)]
+    return [g[0] for g in grads], [g[1] for g in grads]
+
+
+def _warp_rows_bwd_kernel(xs, srcs, douts):
+    _check_kernel_operands(warp_rows_bwd, xs=xs, srcs=srcs, douts=douts)
     c = srcs[0].shape[2]
     for src in srcs:
         if 4 * src.shape[1] * c > _MAX_SHARED_BYTES:
@@ -189,8 +168,8 @@ def warp_rows_bwd_many(xs, srcs, douts):
                              f"most {_MAX_SHARED_BYTES // 4}")
     dxs = [torch.empty_like(x) for x in xs]
     dsrcs = [torch.empty_like(src) for src in srcs]
-    _launch("bwd", list(zip(xs, srcs, douts, dsrcs, dxs)), c)
-    note_kernel("warp_rows_bwd", (*xs, *srcs, *douts), (*dxs, *dsrcs))
+    _launch(warp_rows_bwd, "umt_warp_rows_bwd",
+            list(zip(xs, srcs, douts, dsrcs, dxs)), c)
     return dxs, dsrcs
 
 

@@ -27,8 +27,9 @@ Each device kernel, memcpy and memset goes to the innermost scope
    itself: where the profiler records their device work but not their
    launch, only the device join places them.
 
-Its operator is the hand kernel's name (``HAND_KERNELS``), else the
-outermost aten operator around its launch, else the kernel's own name.
+Its operator is the hand kernel's name (``ops/kernels.py::hand_kernel``),
+else the outermost aten operator around its launch, else the kernel's own
+name.
 The profiler's own ``ProfilerStep#N`` ranges around a schedule's steps
 are no scope.
 
@@ -56,6 +57,8 @@ import re
 import sys
 import tempfile
 
+from ..ops.kernels import hand_kernel
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 LAUNCH_NAME = re.compile(r"Launch|Memcpy|Memset")
@@ -66,28 +69,6 @@ UNATTRIBUTED = "(unattributed)"
 NO_LAUNCH = ("no scope's device range holds it and its launch is not in the "
              "trace")
 TRACE_FILE = "trace.json"
-# the hand kernels' device functions (csrc/): the decoder glue's row
-# kernel runs K1, K4 and K5 in modes 0, 1 and 2 (decoder_rows.cuh)
-HAND_KERNELS = (
-    ("assemble_z", re.compile(r"decoder_rows<[^,<>]*,\s*0\s*,")),
-    ("se_squeeze", re.compile(r"decoder_rows<[^,<>]*,\s*1\s*,")),
-    ("assemble", re.compile(r"decoder_rows<[^,<>]*,\s*2\s*,")),
-    ("gate_z", re.compile(r"gate_z_flat")),
-    ("gated_conv_elu", re.compile(r"gated_conv_(wgmma|f32)")),
-    ("upsample2x2", re.compile(r"upsample2x2_kernel")),
-    ("reflect_pad", re.compile(r"reflect_pad_kernel")),
-    ("attend", re.compile(r"attend_(context|combine|apply)")),
-    ("warp_rows_fwd", re.compile(r"warp_rows_fwd")),
-    ("warp_rows_bwd", re.compile(r"warp_rows_bwd")),
-)
-
-
-def hand_kernel(name: str):
-    """The hand kernel whose device function ``name`` is, or None."""
-    for kernel, pattern in HAND_KERNELS:
-        if pattern.search(name):
-            return kernel
-    return None
 
 
 def launch_records(events) -> list:

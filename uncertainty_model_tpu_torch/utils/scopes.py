@@ -13,9 +13,9 @@ its scope.  The serving forward runs each encoder stage in ``enc{i}`` and
 each decoder stage in ``dec{i}``, as the JAX package's does.
 
 A hand-written kernel is launched through ``ctypes``, so no aten operation
-shows its operands to a recorder.  Its wrapper calls
+shows its operands to a recorder.  ``ops/hand.py::run`` calls
 ``note_kernel(name, inputs, outputs, flops)`` instead, on the CUDA branch
-and on the CPU branch alike, and runs its plain version under
+and on the CPU branch alike, and runs the plain version under
 ``uncounted()`` so that the plain version's aten operations are not
 counted a second time.  ``note_kernel`` does nothing unless a recorder is
 active.  The bytes of a call are those of its operands and outputs, each
@@ -104,26 +104,23 @@ class Ring:
         self._name_id: dict = {}
         self.dropped = 0
         self.lost_start = -1     # the latest start of an overwritten span
-        # taken for a new name and an overwrite alone: a span's own slot
-        # is no other open span's
+        # one record at a time: two spans ``capacity`` ids apart that close
+        # at once share a slot, and each must see the other's record
         self._lock = threading.Lock()
 
     def add(self, sid, name, start, end, parent, root) -> None:
         slot = sid & self.mask
-        if self.ids[slot] >= 0:
-            with self._lock:
+        with self._lock:
+            nid = self._name_id.get(name)
+            if nid is None:
+                self.names.append(name)
+                nid = self._name_id[name] = len(self.names) - 1
+            if self.ids[slot] >= 0:
                 self.dropped += 1
                 self.lost_start = max(self.lost_start, self.starts[slot])
-        nid = self._name_id.get(name)
-        if nid is None:
-            with self._lock:
-                nid = self._name_id.get(name)
-                if nid is None:
-                    self.names.append(name)
-                    nid = self._name_id[name] = len(self.names) - 1
-        self.ids[slot], self.name_ids[slot] = sid, nid
-        self.starts[slot], self.ends[slot] = start, end
-        self.parents[slot], self.roots[slot] = parent, root
+            self.ids[slot], self.name_ids[slot] = sid, nid
+            self.starts[slot], self.ends[slot] = start, end
+            self.parents[slot], self.roots[slot] = parent, root
 
     def spans(self, t0: int, t1: int) -> Optional[list]:
         """The spans that start at or after ``t0`` and end at or before
